@@ -1,0 +1,528 @@
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
+
+Run from the root of the repository:
+
+    python3 chip_smoke.py
+
+Phases (each one fails the run on error; nothing is caught and swallowed):
+
+1. card: print the GPU's name and power limit (nvidia-smi); TF32 off.
+2. build: compile every hand-written kernel from ``scrubvae_torch/csrc``.
+3. kernel: the fused AdamW kernel against its plain PyTorch version, bitwise
+   with injected noise in all four dtype variants, stochastic rounding
+   unbiased on the Philox path, and its time beside the plain version's,
+   ``torch._fused_adamw_``'s and the bandwidth bound.
+4. parity: one small train step on the GPU against the same step on the CPU
+   (same weights, same sample noise), held to the step-1 bounds of
+   ``scrubvae_torch.train.parity``; the GPU runs it twice with deterministic
+   algorithms, and the two runs must be bitwise equal.
+5. path: the flagship train step at full width (channels 64-1024, window 51,
+   z 128, batch 512, bf16) for 3 warm-up and 20 timed steps through
+   ``factory.build_model`` and ``Trainer``; losses finite and every
+   optimizer leaf launched through the kernel on every step; then the
+   optimizer pass alone beside the bytes it must move.
+6. profile, only when asked for (``--phases kernel,parity,path,profile``):
+   device time by kernel over 5 flagship steps, and the device's idle share
+   (torch.profiler; the table goes to ``build/profile_path.txt``).
+
+Prints one JSON line describing the kernels, the card's name and power limit
+again, then, as its last line, the device record. Needs one CUDA GPU and
+``nvcc``; exits non-zero without them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import pathlib
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+F32_FLOP_PER_S = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
+ADAMW_FLOPS_PER_ELEM = 20
+ROOT = pathlib.Path(__file__).resolve().parent
+PHASES = ("kernel", "parity", "path")
+DEVICE = "cuda"
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equality (tells -0.0 from 0.0 and compares NaN payloads)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    as_int = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
+    return torch.equal(a.view(as_int), b.view(as_int))
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean time of ``fn`` on the card, from CUDA events around ``iters`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the fused AdamW kernel
+# ---------------------------------------------------------------------------
+
+KERNEL_SHAPES = (
+    ("encoder.fc_sigma.0.weight", (4096, 8256)),
+    ("encoder.conv_in.weight", (64, 111, 7)),
+)
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _leaf_inputs(shape, w_dt, m_dt, gen):
+    dev = torch.device("cuda")
+
+    def randn(scale):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    w = randn(0.05).to(w_dt)
+    g = randn(1e-2).to(w_dt)
+    mu = randn(1e-3).to(m_dt)
+    nu = (randn(1e-4) ** 2).to(m_dt)
+    return w, g, mu, nu
+
+
+def kernel_phase() -> dict:
+    from scrubvae_torch.ops import fused_adamw as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t = 3
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.01)
+    scal = torch.tensor(
+        [1e-3, 1.0 - 0.9**t, 1.0 - 0.999**t, 0.7], dtype=torch.float32, device="cuda"
+    )
+    lr, b1c, b2c, gscale = scal.unbind(0)
+    timings = {}
+    max_err = 0.0
+    for name, shape in KERNEL_SHAPES:
+        n = math.prod(shape)
+        for wk, mk in (("f32", "f32"), ("f32", "bf16"), ("bf16", "f32"), ("bf16", "bf16")):
+            w_dt, m_dt = DTYPES[wk], DTYPES[mk]
+            w, g, mu, nu = _leaf_inputs(shape, w_dt, m_dt, gen)
+            noise = torch.randint(
+                0, 1 << 16, (3, n), generator=gen, device="cuda", dtype=torch.int32
+            )
+            # bitwise against the plain version on the same noise
+            rw, rm, rn = fa.fused_adamw_leaf_reference(
+                w, g, mu, nu, lr=lr, b1c=b1c, b2c=b2c, gscale=gscale, noise=noise, **hyper
+            )
+            kw, km, kn = w.clone(), mu.clone(), nu.clone()
+            fa.fused_adamw_leaf(kw, g, km, kn, scal, noise=noise, **hyper)
+            torch.cuda.synchronize()
+            for label, a, b in (("w", kw, rw), ("m", km, rm), ("n", kn, rn)):
+                if not bits_equal(a, b):
+                    diff = (a.float() - b.float()).abs().max().item()
+                    raise AssertionError(
+                        f"kernel != plain version for {name} w={wk} m={mk} on {label}: "
+                        f"max |diff| {diff}"
+                    )
+                max_err = max(max_err, (a.float() - b.float()).abs().max().item())
+            # Philox path: stochastic rounding unbiased (mean error within 4 sigma)
+            exact = fa.fused_adamw_leaf_reference(
+                w.float(), g.float(), mu.float(), nu.float(),
+                lr=lr, b1c=b1c, b2c=b2c, gscale=gscale, **hyper,
+            )
+            pw, pm, pn = w.clone(), mu.clone(), nu.clone()
+            fa.fused_adamw_leaf(pw, g, pm, pn, scal, seed=1234, leaf=7, step=t, **hyper)
+            torch.cuda.synchronize()
+            sr = []
+            for label, got, ref in (("w", pw, exact[0]), ("m", pm, exact[1]), ("n", pn, exact[2])):
+                if got.dtype != torch.bfloat16:
+                    if not bits_equal(got, ref):
+                        raise AssertionError(f"f32 store differs from exact for {label}")
+                    continue
+                err = (got.double() - ref.double()).flatten()
+                mean, sd = err.mean().item(), err.std().item()
+                z = mean / (sd / math.sqrt(err.numel())) if sd > 0 else 0.0
+                if abs(z) > 4.0:
+                    raise AssertionError(
+                        f"stochastic rounding biased for {name} w={wk} m={mk} on {label}: "
+                        f"mean {mean:.3e}, {z:.2f} sigma"
+                    )
+                sr.append(f"{label}:{z:+.2f}sigma")
+            rec = {"bitwise": True, "sr_mean_err": " ".join(sr) or "no bf16 store"}
+            if name == KERNEL_SHAPES[0][0]:
+                bytes_moved = fa.leaf_bytes([shape], w.element_size(), mu.element_size())
+                bound_ms = max(
+                    bytes_moved / HBM_BYTES_PER_S, ADAMW_FLOPS_PER_ELEM * n / F32_FLOP_PER_S
+                ) * 1e3
+                rec["bytes"] = bytes_moved
+                rec["bound_ms"] = bound_ms
+                rec["bound_by"] = (
+                    "bytes"
+                    if bytes_moved / HBM_BYTES_PER_S >= ADAMW_FLOPS_PER_ELEM * n / F32_FLOP_PER_S
+                    else "operations"
+                )
+                before = fa.fused_adamw_leaf.launches
+                rec["kernel_ms"] = cuda_ms(
+                    lambda: fa.fused_adamw_leaf(kw, g, km, kn, scal, seed=1, leaf=0, step=t, **hyper)
+                )
+                fa.fused_adamw_leaf.launches = before
+                rec["plain_ms"] = cuda_ms(
+                    lambda: fa.fused_adamw_leaf_reference(
+                        kw, g, km, kn, lr=lr, b1c=b1c, b2c=b2c, gscale=gscale, noise=noise, **hyper
+                    )
+                )
+                if wk == "f32" and mk == "f32":
+                    steps = [torch.tensor(float(t), device="cuda")]
+                    rec["library_ms"] = cuda_ms(
+                        lambda: torch._fused_adamw_(
+                            [kw], [g], [km], [kn], [], steps,
+                            lr=1e-3, beta1=0.9, beta2=0.999, weight_decay=0.01,
+                            eps=1e-8, amsgrad=False, maximize=False,
+                        )
+                    )
+                timings[f"w {wk}, m {mk}"] = rec
+            log(f"kernel fused_adamw {name} {tuple(shape)} w={wk} m={mk}: " + json.dumps(rec))
+            del w, g, mu, nu, noise, rw, rm, rn, kw, km, kn, exact, pw, pm, pn
+            torch.cuda.empty_cache()
+    return {"timings": timings, "max_abs_err": max_err}
+
+
+# ---------------------------------------------------------------------------
+# the bench configuration (bench.py build()), through the port's entry points
+# ---------------------------------------------------------------------------
+
+SMALL_CH = (8, 8, 16, 16, 32)
+FULL_CH = (64, 128, 256, 512, 1024)
+KEYS = ("x6d", "root", "offsets", "target_pose", "avg_speed_3d", "heading", "ids")
+ARENA = np.asarray([[-290, -290, 0], [290, 290, 120]], np.float32)
+
+
+
+def bench_config(batch: int, z_dim: int, ch, bf16: bool) -> dict:
+    return {
+        "data": {
+            "batch_size": batch, "dataset": "synthetic", "direction_process": "midfwd",
+            "arena_size": ARENA.tolist(),
+        },
+        "disentangle": {
+            "method": {
+                "conditional": ["avg_speed_3d", "heading"],
+                "linear": ["avg_speed_3d"],
+                "moving_avg_lsq": ["avg_speed_3d"],
+                "grad_reversal": ["avg_speed_3d"],
+            },
+            "features": ["avg_speed_3d", "heading"], "alpha": 1.0, "balance_loss": None,
+            "bandwidth": 1.0, "polynomial": 1, "var_mode": "sphere", "l2_reg": 0.0, "n_iter": 2,
+        },
+        "model": {
+            "type": "rcnn", "z_dim": z_dim, "window": 51, "diag": False, "channel": list(ch),
+            "kernel": 5, "start_epoch": 0, "load_model": None, "prior": "gaussian",
+            "activation": "prelu", "init_dilation": None, "sigma_head_rank": None,
+            "precision": "bf16" if bf16 else "fp32",
+        },
+        "train": {
+            "lr": 1e-4, "optimizer": "adamw", "lr_schedule": "cawr", "num_epochs": 1, "seed": 0,
+            "mesh": None, "clip_norm": 0, "fused_optimizer": True,
+            "param_dtype": "bf16" if bf16 else "f32",
+        },
+        "loss": {
+            "rotation": 1.0, "prior": 0.001, "root": 0.01, "jpe": 1.0,
+            "avg_speed_3d_mals": 0.1, "avg_speed_3d_lin": 1.0, "avg_speed_3d_gr": 1.0,
+        },
+    }
+
+
+def build_trainer(batch: int, z_dim: int, ch, bf16: bool, device: str):
+    """Synthetic stream (max(16 batch, 4096) frames, 4 ids, seed 0), the
+    on-device frame store and window dataset, the model and the trainer."""
+    from scrubvae_torch import factory
+    from scrubvae_torch.data.dataset import StreamDataset
+    from scrubvae_torch.data.pipeline import build_frame_store
+    from scrubvae_torch.data.skeleton import load_skeleton
+    from scrubvae_torch.data.synthetic import synthetic_pose_stream
+    from scrubvae_torch.train.trainer import Trainer
+
+    skel = load_skeleton(ROOT / "configs" / "mouse_skeleton.yaml")
+    pose, ids = synthetic_pose_stream(skel, n_frames=max(batch * 16, 4096), n_ids=4, seed=0)
+    store = build_frame_store(pose, ids, skel, window=51, stride=2, device=device)
+    ds = StreamDataset(
+        store, skel, KEYS, "midfwd", arena_size=ARENA,
+        discrete_classes={"ids": np.unique(ids)}, device=device,
+    )
+    cfg = bench_config(batch, z_dim, ch, bf16)
+    model, info = factory.build_model(
+        cfg["model"], cfg["disentangle"], n_keypts=18, direction_process="midfwd",
+        arena_size=ARENA, discrete_classes=ds.discrete_classes, loss_keys=cfg["loss"].keys(),
+        device=device,
+    )
+    return Trainer(cfg, {"train": ds}, model, info, device=device), ds
+
+
+# ---------------------------------------------------------------------------
+# phase 4: one small step on the card against the same step on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _one_step(trainer, device: str, rows: np.ndarray, eps: np.ndarray) -> dict:
+    from scrubvae_torch.train.parity import MALS_KEYS
+
+    names = [n for n, _ in trainer.model.named_parameters()]
+    trainer.state, metrics = trainer.train_step(
+        trainer.state, torch.as_tensor(rows, device=device), trainer.loss_scale_for_epoch(1),
+        eps=torch.from_numpy(eps).to(device),
+    )
+    mals = trainer.state.scrub_state["moving_avg_lsq"]["avg_speed_3d"]
+    b1 = trainer.tx.b1
+    return {
+        "losses": {k: float(v) for k, v in metrics.items()},
+        # step 1: m = (1 - b1) g
+        "grads": {n: m.cpu() / (1.0 - b1) for n, m in zip(names, trainer.state.opt_state.mu)},
+        "w1": {n: p.detach().cpu() for n, p in trainer.model.named_parameters()},
+        "mals": {k: getattr(mals, k).cpu() for k in MALS_KEYS},
+    }
+
+
+def _same_bits(a: dict, b: dict) -> bool:
+    return a["losses"] == b["losses"] and all(
+        bits_equal(a[part][k], b[part][k]) for part in ("grads", "w1", "mals") for k in a[part]
+    )
+
+
+def parity_phase() -> dict:
+    """One ``--small`` step on the card against the same step on the CPU
+    (same weights, noise and window rows), held to the step-1 bounds of
+    ``scrubvae_torch.train.parity``. The card takes the step twice with
+    deterministic algorithms (cuDNN, cuBLAS, index_add), and the two must be
+    bitwise equal, so the verdict does not change from one run to the next."""
+    from scrubvae_torch.train import parity
+
+    cpu_trainer, ds = build_trainer(16, 16, SMALL_CH, False, "cpu")
+    rows = np.random.default_rng(0).integers(0, len(ds), 16)
+    eps = np.random.default_rng(1).standard_normal((16, 16)).astype(np.float32)
+    cpu = _one_step(cpu_trainer, "cpu", rows, eps)
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True)
+    try:
+        gpu, again = [
+            _one_step(build_trainer(16, 16, SMALL_CH, False, DEVICE)[0], DEVICE, rows, eps)
+            for _ in range(2)
+        ]
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    if not _same_bits(gpu, again):
+        raise AssertionError("parity: two deterministic steps on the card differ")
+    rec = {
+        "max_loss_rel": parity.check_losses(cpu["losses"], gpu["losses"], 1e-4),
+        **parity.check_grads(cpu["grads"], gpu["grads"]),
+        **parity.check_weights(cpu["w1"], gpu["w1"], cpu["grads"]),
+        "max_mals_rel": parity.check_mals(cpu["mals"], gpu["mals"], 1e-4),
+        "repeat_bitwise_equal": True,
+    }
+    log("parity small step, card vs CPU: " + json.dumps(rec))
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the flagship train step at full width
+# ---------------------------------------------------------------------------
+
+
+def path_phase(batch: int = 512, warmup: int = 3, steps: int = 20, ch=FULL_CH, z_dim: int = 128):
+    from scrubvae_torch.ops import fused_adamw as fa
+
+    trainer, ds = build_trainer(batch, z_dim, ch, True, DEVICE)
+    params = list(trainer.model.parameters())
+    opt = trainer.state.opt_state
+    variants = {}
+    for p, m in zip(params, opt.mu):
+        key = f"w {'bf16' if p.dtype == torch.bfloat16 else 'f32'}, m {'bf16' if m.dtype == torch.bfloat16 else 'f32'}"
+        variants[key] = variants.get(key, 0) + 1
+    rows = torch.as_tensor(
+        np.random.default_rng(0).integers(0, len(ds), (warmup + steps, batch)), device=DEVICE
+    )
+    loss_scale = trainer.loss_scale_for_epoch(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = []
+    fa.fused_adamw_leaf.launches = 0
+    for i in range(warmup + steps):
+        if i == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        trainer.state, m = trainer.train_step(trainer.state, rows[i], loss_scale)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    launches = fa.fused_adamw_leaf.launches
+
+    losses = {k: torch.stack([m[k] for m in metrics]).float().cpu() for k in metrics[0]}
+    bad = [k for k, v in losses.items() if not bool(torch.isfinite(v).all())]
+    if bad:
+        raise AssertionError(f"path: non-finite losses {bad}")
+    if len(params) != 130 or launches != len(params) * (warmup + steps):
+        raise AssertionError(
+            f"path: {launches} kernel launches for {len(params)} leaves x {warmup + steps} steps"
+        )
+
+    # the optimizer pass alone: one update_and_apply over every leaf, on
+    # gradients of the leaves' shapes and dtypes (its cost does not depend
+    # on their values), beside the bytes it must move
+    grads = [torch.randn_like(p) * 1e-3 for p in params]
+    opt_ms = cuda_ms(lambda: trainer.tx.update_and_apply(grads, trainer.state.opt_state, params), iters=10)
+    opt_bytes = sum(
+        fa.leaf_bytes([p.shape], p.element_size(), m.element_size()) for p, m in zip(params, opt.mu)
+    )
+    rec = {
+        "batch": batch, "channels": list(ch), "window": 51, "z_dim": z_dim,
+        "precision": "bf16", "param_dtype": "bf16", "warmup_steps": warmup, "timed_steps": steps,
+        "step_ms": step_s * 1e3, "samples_per_s": batch / step_s,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "leaves": len(params), "params": sum(p.numel() for p in params),
+        "leaf_variants": variants, "kernel_launches": launches,
+        "launches_per_step": launches / (warmup + steps),
+        "first_total": float(losses["total"][0]), "last_total": float(losses["total"][-1]),
+        "optimizer_pass_ms": opt_ms, "optimizer_pass_bytes": opt_bytes,
+        "optimizer_pass_bound_ms": opt_bytes / HBM_BYTES_PER_S * 1e3,
+    }
+    log("path flagship train step: " + json.dumps(rec))
+    return rec, trainer, rows, loss_scale
+
+
+def profile_phase(trainer, rows, loss_scale, steps: int = 5) -> None:
+    """Device time by kernel over a few flagship steps (torch.profiler);
+    the full table is written to build/profile_path.txt."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            trainer.state, _ = trainer.train_step(trainer.state, rows[i], loss_scale)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernels only: the aten ops above them carry the same device time
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    events.sort(key=lambda e: -e.self_device_time_total)
+    out = ROOT / "build" / "profile_path.txt"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(
+        prof.key_averages().table(sort_by="self_device_time_total", row_limit=60)
+    )
+    top = [
+        {"name": e.key[:90], "ms_per_step": e.self_device_time_total / 1e3 / steps,
+         "calls_per_step": e.count / steps}
+        for e in events[:15]
+    ]
+    log("profile: " + json.dumps({
+        "steps": steps, "wall_ms_per_step": wall_ms / steps,
+        "device_busy_ms_per_step": busy_ms / steps, "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "kernel_launches_per_step": sum(e.count for e in events) / steps,
+        "top_kernels": top,
+    }))
+
+
+# ---------------------------------------------------------------------------
+# main
+# ---------------------------------------------------------------------------
+
+
+def kernels_line(kernel: dict, path: dict) -> dict:
+    """One record per kernel of the main path: its launches on the path run
+    and, at the fc_sigma shape, its time beside the plain version's, the
+    bound and the library call's, for the f32 variant (where
+    ``torch._fused_adamw_`` computes the same function) and for every
+    variant."""
+    f32 = kernel["timings"]["w f32, m f32"]
+    return {"kernels": [{
+        "name": "fused_adamw",
+        "route": "cuda",
+        "source": "scrubvae_torch/csrc/fused_adamw.cu",
+        "replaces": "scrubvae_tpu/ops/fused_adamw.py:77",
+        "launches": path["kernel_launches"],
+        "max_abs_err": kernel["max_abs_err"],
+        "ms": f32["kernel_ms"],
+        "plain_ms": f32["plain_ms"],
+        "bound_ms": f32["bound_ms"],
+        "bound_by": f32["bound_by"],
+        "library_ms": f32["library_ms"],
+        "shape": list(KERNEL_SHAPES[0][1]),
+        "variant": "w f32, m f32",
+        "variants": {
+            v: {k: t[k] for k in ("kernel_ms", "plain_ms", "bound_ms", "bytes")}
+            for v, t in kernel["timings"].items()
+        },
+        "main_path_fc_sigma_variant": "w bf16, m bf16",
+    }]}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument(
+        "--phases", default=",".join(PHASES),
+        help="comma-separated phases out of %s (default: %s)"
+        % (",".join(PHASES + ("profile",)), ",".join(PHASES)),
+    )
+    args = ap.parse_args()
+    phases = [p for p in args.phases.split(",") if p]
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA GPU available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    # cuBLAS is deterministic with this workspace setting; the parity phase
+    # asks for deterministic algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    from scrubvae_torch.ops import fused_adamw as fa
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    log(smi[0] if smi else "nvidia-smi: no output")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    lib = fa.build(force=True)
+    log(f"build fused_adamw: {time.perf_counter() - t0:.2f} s -> {lib.relative_to(ROOT)}")
+
+    kernel = kernel_phase() if "kernel" in phases else None
+    if "parity" in phases:
+        parity_phase()
+    path = None
+    if "path" in phases or "profile" in phases:
+        path, trainer, rows, loss_scale = path_phase()
+        if "profile" in phases:
+            profile_phase(trainer, rows, loss_scale)
+    if kernel is not None and path is not None:
+        log(json.dumps(kernels_line(kernel, path)))
+    log(smi[0] if smi else "nvidia-smi: no output")
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

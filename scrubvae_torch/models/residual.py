@@ -1,0 +1,228 @@
+"""Residual convolutional VAE, the flagship model (counterpart of
+``scrubvae_tpu/models/residual.py``, ``rcnn`` with the packed Cholesky head).
+
+Public methods take and return the JAX package's layout: batches are dicts
+of (B, W, J, 6) ``x6d`` and (B, W, 3) ``root``. Inside, the stack is NCW and
+the encoder flattens channel-major, like the reference torch model. Heads
+and the decoder emit f32 whatever the compute dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from scrubvae_torch.models.layers import (
+    Conv1d,
+    ConvTranspose1d,
+    Linear,
+    ResidualBlock,
+    ResidualBlockTranspose,
+    decoder_lengths,
+    encoder_lengths,
+    f32_or_wider,
+    make_activation,
+    packed_matvec,
+    packed_softplus_diag,
+)
+from scrubvae_torch.ops.kinematics import inv_normalize_root, normalize_root
+
+__all__ = ["ResidualEncoder", "ResidualDecoder", "ResVAE"]
+
+DEFAULT_CH = (64, 128, 256, 512, 1024)
+
+
+class ResidualEncoder(nn.Module):
+    def __init__(
+        self,
+        in_channels: int,
+        ch: Sequence[int] = DEFAULT_CH,
+        kernel: int = 5,
+        z_dim: int = 128,
+        window: int = 51,
+        activation: str = "prelu",
+        is_diag: bool = False,
+        init_dilation: Optional[int] = None,
+        compute_dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__()
+        n = len(ch) - 1
+        dil = [1] * n if init_dilation is None else [init_dilation * 2**i for i in range(n)]
+        self.z_dim, self.is_diag, self.compute_dtype = z_dim, is_diag, compute_dtype
+        dt = compute_dtype
+        self.conv_in = Conv1d(in_channels, ch[0], 7, 1, 3, compute_dtype=dt)
+        self.activation = make_activation(activation)
+        self.res_layers = nn.Sequential(
+            *[
+                ResidualBlock(ch[i], ch[i + 1], kernel, activation, dil[i], compute_dtype=dt)
+                for i in range(n)
+            ]
+        )
+        flat = ch[-1] * encoder_lengths(window, kernel, n, dil)[-1]
+        sig_dim = z_dim if is_diag else z_dim * (z_dim + 1) // 2
+        self.fc_mu = Linear(flat, z_dim, compute_dtype=dt)
+        self.fc_sigma = nn.Sequential(Linear(flat, sig_dim, compute_dtype=dt))
+
+    def forward(self, x: torch.Tensor, mu_only: bool = False):
+        """x: (B, W, C) -> (mu (B, z), packed L (B, K) or None), both f32."""
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
+        h = self.activation(self.conv_in(x.transpose(1, 2)))
+        h = self.res_layers(h).flatten(1)  # channel-major (C, L)
+        mu = f32_or_wider(self.fc_mu(h))
+        if mu_only:
+            return mu, None
+        sig = f32_or_wider(self.fc_sigma(h))
+        return mu, packed_softplus_diag(sig, self.z_dim, self.is_diag)
+
+
+class ResidualDecoder(nn.Module):
+    def __init__(
+        self,
+        out_channels: int,
+        ch: Sequence[int] = DEFAULT_CH,
+        kernel: int = 5,
+        z_dim: int = 128,
+        window: int = 51,
+        activation: str = "prelu",
+        conditional_dim: int = 0,
+        compute_dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__()
+        n = len(ch) - 1
+        self.latent_len = encoder_lengths(window, kernel, n, [1] * n)[-1]
+        self.compute_dtype = compute_dtype
+        dt = compute_dtype
+        self.fc_in = Linear(z_dim + conditional_dim, self.latent_len * ch[-1], compute_dtype=dt)
+        self.res_layers = nn.Sequential(
+            *[
+                ResidualBlockTranspose(ch[-i], ch[-i - 1], kernel, activation, compute_dtype=dt)
+                for i in range(1, len(ch))
+            ]
+        )
+        l_out = decoder_lengths(self.latent_len, kernel, n)[-1]
+        self.conv_out = ConvTranspose1d(
+            ch[0], out_channels, window - l_out + 7, 1, 3, compute_dtype=dt
+        )
+        self.ch_last = ch[-1]
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        """z: (B, z + cond) -> (B, W, C) f32 in (-1, 1)."""
+        if self.compute_dtype is not None:
+            z = z.to(self.compute_dtype)
+        h = self.fc_in(z).reshape(z.shape[0], self.ch_last, self.latent_len)
+        h = self.conv_out(self.res_layers(h))
+        return f32_or_wider(torch.tanh(h)).transpose(1, 2)
+
+
+class ResVAE(nn.Module):
+    """Encoder/decoder with arena root normalisation and conditional
+    decoding; the packed Cholesky head (``packed_sigma``) only."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        ch: Sequence[int] = DEFAULT_CH,
+        kernel: int = 5,
+        z_dim: int = 128,
+        window: int = 51,
+        activation: str = "prelu",
+        is_diag: bool = False,
+        conditional_dim: int = 0,
+        init_dilation: Optional[int] = None,
+        prior: str = "gaussian",
+        arena_size=None,
+        conditional_keys: Sequence[str] = (),
+        discrete_classes: Optional[Dict[str, int]] = None,
+        precision: str = "fp32",
+        sigma_head_rank: Optional[int] = None,
+        packed_sigma: bool = True,
+    ):
+        super().__init__()
+        if prior != "gaussian" or not packed_sigma or sigma_head_rank:
+            raise NotImplementedError(
+                "scrubvae_torch ResVAE supports the gaussian prior with the packed "
+                "dense Cholesky head only"
+            )
+        self.z_dim, self.window, self.is_diag = z_dim, window, is_diag
+        self.conditional_dim = conditional_dim
+        self.conditional_keys = tuple(conditional_keys)
+        self.discrete_classes = dict(discrete_classes or {})
+        dt = torch.bfloat16 if precision == "bf16" else None
+        self.encoder = ResidualEncoder(
+            in_channels, ch, kernel, z_dim, window, activation, is_diag, init_dilation, dt
+        )
+        self.decoder = ResidualDecoder(
+            in_channels, ch, kernel, z_dim, window, activation, conditional_dim, dt
+        )
+        self.register_buffer(
+            "arena",
+            None if arena_size is None else torch.as_tensor(arena_size, dtype=torch.float32),
+            persistent=False,
+        )
+
+    def encode(self, data: Dict[str, torch.Tensor], mu_only: bool = False) -> Dict[str, torch.Tensor]:
+        x6d = data["x6d"]
+        B, W = x6d.shape[:2]
+        x_in = x6d.reshape(B, W, -1)
+        if self.arena is not None:
+            norm_root = normalize_root(data["root"], self.arena.to(x6d.dtype))
+            x_in = torch.cat([x_in, norm_root], dim=-1)
+        mu, Lp = self.encoder(x_in, mu_only=mu_only)
+        return {"mu": mu} if Lp is None else {"mu": mu, "Lp": Lp}
+
+    def build_conditionals(self, data: Dict[str, torch.Tensor]) -> Optional[torch.Tensor]:
+        """One-hot discrete + continuous conditionals, concatenated."""
+        if self.conditional_dim <= 0:
+            return None
+        parts = []
+        for k in self.conditional_keys:
+            v = data[k]
+            if k in self.discrete_classes:
+                parts.append(
+                    F.one_hot(v.reshape(-1).long(), self.discrete_classes[k]).float()
+                )
+            else:
+                parts.append(v)
+        return torch.cat(parts, dim=-1)
+
+    def decode(self, z: torch.Tensor, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        out: Dict[str, torch.Tensor] = {}
+        var = self.build_conditionals(data)
+        if var is not None:
+            out["var"] = var
+            z = torch.cat([z, var], dim=-1)
+        x_hat = self.decoder(z)
+        B = z.shape[0]
+        if self.arena is not None:
+            x6d = x_hat[..., :-3]
+            out["root"] = inv_normalize_root(x_hat[..., -3:], self.arena.to(x_hat.dtype)).reshape(
+                B, self.window, 3
+            )
+        else:
+            x6d = x_hat
+        out["x6d"] = x6d.reshape(B, self.window, -1, 6)
+        return out
+
+    def sample_z(self, mu: torch.Tensor, Lp: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+        """mu + L @ eps for standard-normal ``eps`` of mu's shape."""
+        return mu + packed_matvec(Lp, eps.to(mu.dtype), self.z_dim, self.is_diag)
+
+    def forward(
+        self,
+        data: Dict[str, torch.Tensor],
+        eps: Optional[torch.Tensor] = None,
+        mu_only: bool = False,
+    ) -> Dict[str, torch.Tensor]:
+        """z = mu + L eps in training mode when ``eps`` is given, else mu."""
+        out = self.encode(data, mu_only=mu_only)
+        if self.training and eps is not None and not mu_only:
+            z = self.sample_z(out["mu"], out["Lp"], eps)
+        else:
+            z = out["mu"]
+        out["z"] = z
+        out.update(self.decode(z, data))
+        return out

@@ -1,0 +1,68 @@
+"""Primitive losses of the flagship train step (counterpart of the
+``stable_rotation_loss`` / ``prior_loss_packed`` / ``mpjpe_loss`` /
+``mse_sum`` part of ``scrubvae_tpu/ops/losses.py``)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from scrubvae_torch.ops.kinematics import KinematicTree, fwd_kin_cont6d
+from scrubvae_torch.ops.rotation import rotation_6d_to_matrix
+
+__all__ = ["mse_sum", "stable_rotation_loss", "prior_loss_packed", "mpjpe_loss"]
+
+
+def mse_sum(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return torch.sum((pred - target) ** 2)
+
+
+def stable_rotation_loss(x: torch.Tensor, x_hat: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Geodesic loss via asin of the chordal distance, summed over all
+    rotations (not normalised, as in the reference). The +1e-14 keeps the
+    sqrt's gradient finite at an exact zero difference."""
+    m1 = rotation_6d_to_matrix(x)
+    m2 = rotation_6d_to_matrix(x_hat)
+    diff = m2 - m1
+    sin = torch.sqrt(torch.sum(diff * diff, dim=(-1, -2)) + 1e-14) / (2.0**1.5)
+    sin = torch.clamp(sin, -1.0 + eps, 1.0 - eps)
+    return 2.0 * torch.sum(torch.asin(sin))
+
+
+def prior_loss_packed(mu: torch.Tensor, Lp: torch.Tensor, diag_only: bool = False) -> torch.Tensor:
+    """KL(N(mu, LL^T) || N(0, I)) averaged over the batch, on the packed
+    tril factor: sum diag(LL^T) is the sum of squares of every packed entry
+    and diag(L) a static column take."""
+    from scrubvae_torch.models.layers import packed_diag, packed_sumsq
+
+    D = mu.shape[1]
+    log_diag = torch.log(packed_diag(Lp, D, diag_only))
+    kl = -0.5 * (
+        mu.shape[0] * D + 2.0 * torch.sum(log_diag) - torch.sum(mu**2) - packed_sumsq(Lp)
+    )
+    return kl / mu.shape[0]
+
+
+def mpjpe_loss(
+    target_pose: torch.Tensor,
+    x6d_hat: torch.Tensor,
+    tree: KinematicTree,
+    offsets: torch.Tensor,
+    root_hat: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Mean per-joint position error with FK inside the loss, normalised by
+    B * 3 * J. target_pose (B, W, J, 3); x6d_hat (B, W, J, 6); offsets
+    (B, W, J, 3)."""
+    B, W, J = target_pose.shape[:3]
+    if root_hat is None:
+        root_hat = torch.zeros_like(target_pose[..., 0, :])
+    pose_hat = fwd_kin_cont6d(
+        x6d_hat.reshape(-1, J, 6),
+        tree,
+        offsets.reshape(-1, J, 3),
+        root_pos=root_hat.reshape(-1, 3),
+        do_root_R=True,
+        eps=1e-8,
+    ).reshape(target_pose.shape)
+    return torch.sum((target_pose - pose_hat) ** 2) / (B * 3 * J)
