@@ -9,18 +9,24 @@ Phases (each one fails the run on error; nothing is caught and swallowed):
 1. card: print the GPU's name and power limit (nvidia-smi); TF32 off.
 2. build: compile every hand-written kernel from ``scrubvae_torch/csrc``.
 3. kernel: the fused AdamW kernel against its plain PyTorch version, bitwise
-   with injected noise in all four dtype variants, stochastic rounding
-   unbiased on the Philox path, and its time beside the plain version's,
-   ``torch._fused_adamw_``'s and the bandwidth bound.
+   in all four dtype variants at two shapes, both with injected noise and
+   on the Philox path; stochastic rounding unbiased; its time beside the
+   plain version's, ``torch._fused_adamw_``'s and the bandwidth bound, and
+   the bf16 variant's Philox time beside its injected-noise time. Then the
+   flagship's whole leaf set (130 leaves, 53,308,812 elements, at their
+   shapes and dtypes) in one multi-tensor call, bitwise against the plain
+   version on the Philox path, and that pass's time beside its bound and
+   ``torch._fused_adamw_`` over f32 copies of every leaf.
 4. parity: one small train step on the GPU against the same step on the CPU
    (same weights, same sample noise), held to the step-1 bounds of
    ``scrubvae_torch.train.parity``; the GPU runs it twice with deterministic
    algorithms, and the two runs must be bitwise equal.
 5. path: the flagship train step at full width (channels 64-1024, window 51,
    z 128, batch 512, bf16) for 3 warm-up and 20 timed steps through
-   ``factory.build_model`` and ``Trainer``; losses finite and every
-   optimizer leaf launched through the kernel on every step; then the
-   optimizer pass alone beside the bytes it must move.
+   ``factory.build_model`` and ``Trainer``; losses finite, and the
+   optimizer's leaf table covering all 130 leaves with one kernel launch
+   per dtype variant (2) a step; then the optimizer pass alone beside the
+   bytes it must move.
 6. profile, only when asked for (``--phases kernel,parity,path,profile``):
    device time by kernel over 5 flagship steps, and the device's idle share
    (torch.profiler; the table goes to ``build/profile_path.txt``).
@@ -103,7 +109,31 @@ def _leaf_inputs(shape, w_dt, m_dt, gen):
     return w, g, mu, nu
 
 
-def kernel_phase() -> dict:
+def _bound(bytes_moved: int, n: int) -> tuple:
+    """The least time (ms) the card could take, and what sets it."""
+    by_bytes = bytes_moved / HBM_BYTES_PER_S
+    by_ops = ADAMW_FLOPS_PER_ELEM * n / F32_FLOP_PER_S
+    return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops else "operations")
+
+
+def _assert_bits(name: str, got, want) -> float:
+    """Raise unless ``got`` and ``want`` (w, m, n) are bitwise equal;
+    returns the max |difference| (0)."""
+    err = 0.0
+    for label, a, b in zip("wmn", got, want):
+        if not bits_equal(a, b):
+            diff = (a.float() - b.float()).abs().max().item()
+            raise AssertionError(f"kernel != plain version for {name} on {label}: max |diff| {diff}")
+        err = max(err, (a.float() - b.float()).abs().max().item())
+    return err
+
+
+def kernel_phase(flagship) -> dict:
+    """Each dtype variant at two shapes: bitwise against the plain version
+    with injected noise and on the Philox path, stochastic rounding
+    unbiased, and (at fc_sigma) the kernel's time beside the plain
+    version's, the library call's and the bound; then the whole flagship
+    leaf set in one multi-tensor call."""
     from scrubvae_torch.ops import fused_adamw as fa
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -118,67 +148,66 @@ def kernel_phase() -> dict:
     for name, shape in KERNEL_SHAPES:
         n = math.prod(shape)
         for wk, mk in (("f32", "f32"), ("f32", "bf16"), ("bf16", "f32"), ("bf16", "bf16")):
+            case = f"{name} w={wk} m={mk}"
             w_dt, m_dt = DTYPES[wk], DTYPES[mk]
             w, g, mu, nu = _leaf_inputs(shape, w_dt, m_dt, gen)
             noise = torch.randint(
                 0, 1 << 16, (3, n), generator=gen, device="cuda", dtype=torch.int32
             )
-            # bitwise against the plain version on the same noise
-            rw, rm, rn = fa.fused_adamw_leaf_reference(
+            # bitwise against the plain version on the same injected noise
+            ref = fa.fused_adamw_leaf_reference(
                 w, g, mu, nu, lr=lr, b1c=b1c, b2c=b2c, gscale=gscale, noise=noise, **hyper
             )
             kw, km, kn = w.clone(), mu.clone(), nu.clone()
             fa.fused_adamw_leaf(kw, g, km, kn, scal, noise=noise, **hyper)
             torch.cuda.synchronize()
-            for label, a, b in (("w", kw, rw), ("m", km, rm), ("n", kn, rn)):
-                if not bits_equal(a, b):
-                    diff = (a.float() - b.float()).abs().max().item()
-                    raise AssertionError(
-                        f"kernel != plain version for {name} w={wk} m={mk} on {label}: "
-                        f"max |diff| {diff}"
-                    )
-                max_err = max(max_err, (a.float() - b.float()).abs().max().item())
-            # Philox path: stochastic rounding unbiased (mean error within 4 sigma)
+            max_err = max(max_err, _assert_bits(case + " (injected noise)", (kw, km, kn), ref))
+            # Philox path: bitwise against the plain version on philox_noise
+            pw, pm, pn = w.clone(), mu.clone(), nu.clone()
+            fa.fused_adamw_leaf(pw, g, pm, pn, scal, seed=1234, leaf=7, step=t, **hyper)
+            ref = fa.fused_adamw_leaf_reference(
+                w, g, mu, nu, lr=lr, b1c=b1c, b2c=b2c, gscale=gscale,
+                noise=fa.philox_noise(n, 1234, 7, t, device="cuda"), **hyper,
+            )
+            torch.cuda.synchronize()
+            max_err = max(max_err, _assert_bits(case + " (Philox)", (pw, pm, pn), ref))
+            # and unbiased (mean rounding error within 4 sigma)
             exact = fa.fused_adamw_leaf_reference(
                 w.float(), g.float(), mu.float(), nu.float(),
                 lr=lr, b1c=b1c, b2c=b2c, gscale=gscale, **hyper,
             )
-            pw, pm, pn = w.clone(), mu.clone(), nu.clone()
-            fa.fused_adamw_leaf(pw, g, pm, pn, scal, seed=1234, leaf=7, step=t, **hyper)
-            torch.cuda.synchronize()
             sr = []
-            for label, got, ref in (("w", pw, exact[0]), ("m", pm, exact[1]), ("n", pn, exact[2])):
+            for label, got, want in zip("wmn", (pw, pm, pn), exact):
                 if got.dtype != torch.bfloat16:
-                    if not bits_equal(got, ref):
-                        raise AssertionError(f"f32 store differs from exact for {label}")
+                    if not bits_equal(got, want):
+                        raise AssertionError(f"f32 store differs from exact for {case} on {label}")
                     continue
-                err = (got.double() - ref.double()).flatten()
+                err = (got.double() - want.double()).flatten()
                 mean, sd = err.mean().item(), err.std().item()
                 z = mean / (sd / math.sqrt(err.numel())) if sd > 0 else 0.0
                 if abs(z) > 4.0:
                     raise AssertionError(
-                        f"stochastic rounding biased for {name} w={wk} m={mk} on {label}: "
+                        f"stochastic rounding biased for {case} on {label}: "
                         f"mean {mean:.3e}, {z:.2f} sigma"
                     )
                 sr.append(f"{label}:{z:+.2f}sigma")
-            rec = {"bitwise": True, "sr_mean_err": " ".join(sr) or "no bf16 store"}
+            rec = {"bitwise_injected": True, "bitwise_philox": True,
+                   "sr_mean_err": " ".join(sr) or "no bf16 store"}
             if name == KERNEL_SHAPES[0][0]:
-                bytes_moved = fa.leaf_bytes([shape], w.element_size(), mu.element_size())
-                bound_ms = max(
-                    bytes_moved / HBM_BYTES_PER_S, ADAMW_FLOPS_PER_ELEM * n / F32_FLOP_PER_S
-                ) * 1e3
-                rec["bytes"] = bytes_moved
-                rec["bound_ms"] = bound_ms
-                rec["bound_by"] = (
-                    "bytes"
-                    if bytes_moved / HBM_BYTES_PER_S >= ADAMW_FLOPS_PER_ELEM * n / F32_FLOP_PER_S
-                    else "operations"
-                )
-                before = fa.fused_adamw_leaf.launches
+                rec["bytes"] = fa.leaf_bytes([shape], w.element_size(), mu.element_size())
+                rec["bound_ms"], rec["bound_by"] = _bound(rec["bytes"], n)
+                # tables built once, as the optimizer builds them
+                table = fa.LeafTable([kw], [km], [kn], leaf_ids=[0])
                 rec["kernel_ms"] = cuda_ms(
-                    lambda: fa.fused_adamw_leaf(kw, g, km, kn, scal, seed=1, leaf=0, step=t, **hyper)
+                    lambda: fa.fused_adamw_multi(table, [g], scal, seed=1, step=t, **hyper)
                 )
-                fa.fused_adamw_leaf.launches = before
+                if wk == "bf16" and mk == "bf16":
+                    # reads 12 B an element more than the Philox path
+                    inj = fa.LeafTable([kw], [km], [kn], noise=[noise])
+                    rec["inject_ms"] = cuda_ms(
+                        lambda: fa.fused_adamw_multi(inj, [g], scal, **hyper)
+                    )
+                    rec["inject_bound_ms"] = (rec["bytes"] + 12 * n) / HBM_BYTES_PER_S * 1e3
                 rec["plain_ms"] = cuda_ms(
                     lambda: fa.fused_adamw_leaf_reference(
                         kw, g, km, kn, lr=lr, b1c=b1c, b2c=b2c, gscale=gscale, noise=noise, **hyper
@@ -195,9 +224,67 @@ def kernel_phase() -> dict:
                     )
                 timings[f"w {wk}, m {mk}"] = rec
             log(f"kernel fused_adamw {name} {tuple(shape)} w={wk} m={mk}: " + json.dumps(rec))
-            del w, g, mu, nu, noise, rw, rm, rn, kw, km, kn, exact, pw, pm, pn
+            del w, g, mu, nu, noise, ref, kw, km, kn, exact, pw, pm, pn
             torch.cuda.empty_cache()
-    return {"timings": timings, "max_abs_err": max_err}
+    leaf_set = leaf_set_check(flagship, scal, hyper, t)
+    max_err = max(max_err, leaf_set.pop("max_abs_err"))
+    return {"timings": timings, "max_abs_err": max_err, "leaf_set": leaf_set}
+
+
+def leaf_set_check(trainer, scal, hyper, t) -> dict:
+    """The flagship's whole leaf set (its parameters' shapes and dtypes,
+    random values) in one multi-tensor call on the Philox path, bitwise
+    against the plain version leaf by leaf; then the pass's device time
+    beside its bound and ``torch._fused_adamw_`` over f32 copies of every
+    leaf."""
+    from scrubvae_torch.ops import fused_adamw as fa
+
+    params = list(trainer.model.parameters())
+    moments = trainer.state.opt_state.mu
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def randn(like, scale, dtype):
+        return (torch.randn(like.shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    ws = [randn(p, 0.05, p.dtype) for p in params]
+    gs = [randn(p, 1e-2, p.dtype) for p in params]
+    mus = [randn(m, 1e-3, m.dtype) for m in moments]
+    nus = [(randn(m, 1e-2, torch.float32) ** 2).to(m.dtype) for m in moments]
+    table = fa.LeafTable([w.clone() for w in ws], [m.clone() for m in mus], [v.clone() for v in nus])
+    seed = 17
+    fa.fused_adamw_multi(table, gs, scal, seed=seed, step=t, **hyper)
+    lr, b1c, b2c, gscale = scal.unbind(0)
+    refs = fa.fused_adamw_multi_reference(
+        ws, gs, mus, nus, lr=lr, b1c=b1c, b2c=b2c, gscale=gscale, seed=seed, step=t, **hyper
+    )
+    torch.cuda.synchronize()
+    err = 0.0
+    for i, ref in enumerate(refs):
+        got = (table.w[i], table.mu[i], table.nu[i])
+        err = max(err, _assert_bits(f"leaf {i} {tuple(ws[i].shape)} of the flagship set", got, ref))
+    del refs
+    n = sum(table.numel)
+    bytes_moved = sum(
+        fa.leaf_bytes([w.shape], w.element_size(), m.element_size()) for w, m in zip(ws, mus)
+    )
+    rec = {
+        "leaves": len(ws), "elements": n, "launches_per_call": len(table.batches),
+        "bitwise_philox": True, "max_abs_err": err, "bytes": bytes_moved,
+        "pass_ms": cuda_ms(lambda: fa.fused_adamw_multi(table, gs, scal, seed=seed, step=t, **hyper)),
+    }
+    rec["pass_bound_ms"], rec["bound_by"] = _bound(bytes_moved, n)
+    f32 = [[x.float() for x in xs] for xs in (ws, gs, mus, nus)]
+    steps = [torch.tensor(float(t), device="cuda") for _ in ws]
+    rec["pass_library_ms"] = cuda_ms(
+        lambda: torch._fused_adamw_(
+            *f32, [], steps, lr=1e-3, beta1=0.9, beta2=0.999, weight_decay=0.01,
+            eps=1e-8, amsgrad=False, maximize=False,
+        )
+    )
+    log("kernel fused_adamw flagship leaf set: " + json.dumps(rec))
+    del f32, table, ws, gs, mus, nus
+    torch.cuda.empty_cache()
+    return {**rec, "max_abs_err": err}
 
 
 # ---------------------------------------------------------------------------
@@ -341,16 +428,32 @@ def parity_phase() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def path_phase(batch: int = 512, warmup: int = 3, steps: int = 20, ch=FULL_CH, z_dim: int = 128):
+FLAGSHIP_LEAVES = 130
+FLAGSHIP_PARAMS = 53_308_812
+
+
+def path_phase(trainer, ds, warmup: int = 3, steps: int = 20):
+    """The flagship step through ``Trainer.train_step``: losses finite, one
+    kernel launch per dtype variant a step over a table of every leaf; then
+    the optimizer pass alone beside the bytes it must move."""
     from scrubvae_torch.ops import fused_adamw as fa
 
-    trainer, ds = build_trainer(batch, z_dim, ch, True, DEVICE)
+    batch = trainer.batch_size
     params = list(trainer.model.parameters())
     opt = trainer.state.opt_state
+    table = opt.table
     variants = {}
     for p, m in zip(params, opt.mu):
         key = f"w {'bf16' if p.dtype == torch.bfloat16 else 'f32'}, m {'bf16' if m.dtype == torch.bfloat16 else 'f32'}"
         variants[key] = variants.get(key, 0) + 1
+    n_params = sum(p.numel() for p in params)
+    if (len(params), n_params) != (FLAGSHIP_LEAVES, FLAGSHIP_PARAMS) or (
+        len(table.w), sum(table.numel)
+    ) != (len(params), n_params):
+        raise AssertionError(
+            f"path: {len(params)} leaves of {n_params} elements, table {len(table.w)} of "
+            f"{sum(table.numel)}; expected {FLAGSHIP_LEAVES} of {FLAGSHIP_PARAMS}"
+        )
     rows = torch.as_tensor(
         np.random.default_rng(0).integers(0, len(ds), (warmup + steps, batch)), device=DEVICE
     )
@@ -358,6 +461,7 @@ def path_phase(batch: int = 512, warmup: int = 3, steps: int = 20, ch=FULL_CH, z
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     metrics = []
+    fa.fused_adamw_multi.launches = 0
     fa.fused_adamw_leaf.launches = 0
     for i in range(warmup + steps):
         if i == warmup:
@@ -367,15 +471,16 @@ def path_phase(batch: int = 512, warmup: int = 3, steps: int = 20, ch=FULL_CH, z
         metrics.append(m)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / steps
-    launches = fa.fused_adamw_leaf.launches
+    launches = fa.fused_adamw_multi.launches + fa.fused_adamw_leaf.launches
 
     losses = {k: torch.stack([m[k] for m in metrics]).float().cpu() for k in metrics[0]}
     bad = [k for k, v in losses.items() if not bool(torch.isfinite(v).all())]
     if bad:
         raise AssertionError(f"path: non-finite losses {bad}")
-    if len(params) != 130 or launches != len(params) * (warmup + steps):
+    if len(table.batches) != len(variants) or launches != len(variants) * (warmup + steps):
         raise AssertionError(
-            f"path: {launches} kernel launches for {len(params)} leaves x {warmup + steps} steps"
+            f"path: {launches} kernel launches in {warmup + steps} steps; expected one per "
+            f"dtype variant ({len(variants)}) a step"
         )
 
     # the optimizer pass alone: one update_and_apply over every leaf, on
@@ -387,11 +492,11 @@ def path_phase(batch: int = 512, warmup: int = 3, steps: int = 20, ch=FULL_CH, z
         fa.leaf_bytes([p.shape], p.element_size(), m.element_size()) for p, m in zip(params, opt.mu)
     )
     rec = {
-        "batch": batch, "channels": list(ch), "window": 51, "z_dim": z_dim,
+        "batch": batch, "channels": list(FULL_CH), "window": 51, "z_dim": 128,
         "precision": "bf16", "param_dtype": "bf16", "warmup_steps": warmup, "timed_steps": steps,
         "step_ms": step_s * 1e3, "samples_per_s": batch / step_s,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "leaves": len(params), "params": sum(p.numel() for p in params),
+        "leaves": len(params), "params": n_params,
         "leaf_variants": variants, "kernel_launches": launches,
         "launches_per_step": launches / (warmup + steps),
         "first_total": float(losses["total"][0]), "last_total": float(losses["total"][-1]),
@@ -399,7 +504,7 @@ def path_phase(batch: int = 512, warmup: int = 3, steps: int = 20, ch=FULL_CH, z
         "optimizer_pass_bound_ms": opt_bytes / HBM_BYTES_PER_S * 1e3,
     }
     log("path flagship train step: " + json.dumps(rec))
-    return rec, trainer, rows, loss_scale
+    return rec, rows, loss_scale
 
 
 def profile_phase(trainer, rows, loss_scale, steps: int = 5) -> None:
@@ -447,8 +552,12 @@ def kernels_line(kernel: dict, path: dict) -> dict:
     and, at the fc_sigma shape, its time beside the plain version's, the
     bound and the library call's, for the f32 variant (where
     ``torch._fused_adamw_`` computes the same function) and for every
-    variant."""
+    variant; the Philox against the injected-noise time of the bf16
+    variant; and the whole flagship pass (every leaf, one launch per
+    variant) beside its bound and ``torch._fused_adamw_`` over f32 copies."""
     f32 = kernel["timings"]["w f32, m f32"]
+    bf16 = kernel["timings"]["w bf16, m bf16"]
+    leaf_set = kernel["leaf_set"]
     return {"kernels": [{
         "name": "fused_adamw",
         "route": "cuda",
@@ -468,6 +577,13 @@ def kernels_line(kernel: dict, path: dict) -> dict:
             for v, t in kernel["timings"].items()
         },
         "main_path_fc_sigma_variant": "w bf16, m bf16",
+        "philox_ms": bf16["kernel_ms"],
+        "inject_ms": bf16["inject_ms"],
+        "inject_bound_ms": bf16["inject_bound_ms"],
+        "pass_ms": leaf_set["pass_ms"],
+        "pass_bound_ms": leaf_set["pass_bound_ms"],
+        "pass_library_ms": leaf_set["pass_library_ms"],
+        "launches_per_step": path["launches_per_step"],
     }]}
 
 
@@ -501,15 +617,19 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = fa.build(force=True)
     log(f"build fused_adamw: {time.perf_counter() - t0:.2f} s -> {lib.relative_to(ROOT)}")
+    log(lib.with_suffix(".ptxas.txt").read_text().strip())
 
-    kernel = kernel_phase() if "kernel" in phases else None
+    flagship = None
+    if {"kernel", "path", "profile"} & set(phases):
+        flagship = build_trainer(512, 128, FULL_CH, True, DEVICE)
+    kernel = kernel_phase(flagship[0]) if "kernel" in phases else None
     if "parity" in phases:
         parity_phase()
     path = None
     if "path" in phases or "profile" in phases:
-        path, trainer, rows, loss_scale = path_phase()
+        path, rows, loss_scale = path_phase(*flagship)
         if "profile" in phases:
-            profile_phase(trainer, rows, loss_scale)
+            profile_phase(flagship[0], rows, loss_scale)
     if kernel is not None and path is not None:
         log(json.dumps(kernels_line(kernel, path)))
     log(smi[0] if smi else "nvidia-smi: no output")

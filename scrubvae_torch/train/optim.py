@@ -3,8 +3,9 @@
 the adam/adamw branch of ``make_optimizer`` in
 ``scrubvae_tpu/train/optim.py``).
 
-Every leaf goes through ``ops.fused_adamw.fused_adamw_leaf``, one launch per
-leaf; the JAX package's routing of small leaves elsewhere does not exist
+All leaves go through ``ops.fused_adamw.fused_adamw_multi``: one kernel
+launch per dtype variant a step, over a ``LeafTable`` built once by
+``init``; the JAX package's routing of small leaves elsewhere does not exist
 here. Leaves of at least ``MIN_LOWP_ELEMS`` elements keep bf16 moments
 (stochastically rounded); smaller ones keep f32 moments, so optimizer state
 has the JAX package's dtypes. The step count, the lr, the bias corrections
@@ -19,7 +20,7 @@ from typing import Callable, List, Optional, Sequence, Union
 
 import torch
 
-from scrubvae_torch.ops.fused_adamw import fused_adamw_leaf
+from scrubvae_torch.ops.fused_adamw import LeafTable, fused_adamw_multi
 
 __all__ = ["AdamWState", "FusedAdamW", "cyclical_beta", "make_lr_schedule", "make_optimizer"]
 
@@ -29,6 +30,7 @@ class AdamWState:
     count: torch.Tensor  # int32 device scalar: updates applied so far
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
+    table: LeafTable  # the parameters and moments as the kernel sees them
     step: int = 0  # host mirror of count; the Philox counter of the rounding bits
 
 
@@ -56,19 +58,19 @@ class FusedAdamW:
         self.m_dtype = moment_dtype
         self.clip_norm = clip_norm
         self.seed = seed
-        # rounding bits of CPU leaves (the card draws them from Philox)
-        self._cpu_gen = torch.Generator().manual_seed(seed)
 
     def _leaf_m_dtype(self, p: torch.Tensor) -> torch.dtype:
         lowp = self.m_dtype == torch.bfloat16 and p.numel() >= self.MIN_LOWP_ELEMS
         return torch.bfloat16 if lowp else torch.float32
 
     def init(self, params: Sequence[torch.Tensor]) -> AdamWState:
-        dev = params[0].device
+        mu = [torch.zeros_like(p, dtype=self._leaf_m_dtype(p)) for p in params]
+        nu = [torch.zeros_like(p, dtype=self._leaf_m_dtype(p)) for p in params]
         return AdamWState(
-            count=torch.zeros((), dtype=torch.int32, device=dev),
-            mu=[torch.zeros_like(p, dtype=self._leaf_m_dtype(p)) for p in params],
-            nu=[torch.zeros_like(p, dtype=self._leaf_m_dtype(p)) for p in params],
+            count=torch.zeros((), dtype=torch.int32, device=params[0].device),
+            mu=mu,
+            nu=nu,
+            table=LeafTable([p.detach() for p in params], mu, nu),
         )
 
     def _scalars(self, count: torch.Tensor, grads: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -78,7 +80,9 @@ class FusedAdamW:
         b2c = 1.0 - torch.pow(self.b2, t)
         lr = self.lr(count - 1) if callable(self.lr) else torch.full_like(t, self.lr)
         if self.clip_norm and self.clip_norm > 0:
-            gn = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+            gn = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads, 2, dtype=torch.float32))
+            )
             gscale = torch.clamp(self.clip_norm / torch.clamp(gn, min=1e-30), max=1.0)
         else:
             gscale = torch.ones_like(t)
@@ -91,18 +95,19 @@ class FusedAdamW:
         state: AdamWState,
         params: Sequence[torch.Tensor],
     ) -> AdamWState:
-        """Update ``params`` and the moments in place; returns the new state."""
+        """Update ``params`` and the moments in place; returns the new state.
+        Raises if a parameter or moment no longer lies where ``init`` found
+        it."""
+        state.table.check_storage(params, state.mu, state.nu)
         grads = [torch.zeros_like(p) if g is None else g.contiguous() for g, p in zip(grads, params)]
         count = state.count + 1
         scal = self._scalars(count, grads)
         step = state.step + 1
-        for i, (w, g, m, n) in enumerate(zip(params, grads, state.mu, state.nu)):
-            fused_adamw_leaf(
-                w.data, g, m, n, scal,
-                b1=self.b1, b2=self.b2, eps=self.eps, wd=self.wd,
-                seed=self.seed, leaf=i, step=step, generator=self._cpu_gen,
-            )
-        return AdamWState(count=count, mu=state.mu, nu=state.nu, step=step)
+        fused_adamw_multi(
+            state.table, grads, scal,
+            b1=self.b1, b2=self.b2, eps=self.eps, wd=self.wd, seed=self.seed, step=step,
+        )
+        return dataclasses.replace(state, count=count, step=step)
 
 
 def cyclical_beta(epoch: int, beta_max: float = 1.0, len_cycle: int = 100, R: float = 0.5) -> float:
