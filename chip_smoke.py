@@ -30,6 +30,26 @@ Phases (each one fails the run on error; nothing is caught and swallowed):
 6. profile, only when asked for (``--phases kernel,parity,path,profile``):
    device time by kernel over 5 flagship steps, and the device's idle share
    (torch.profiler; the table goes to ``build/profile_path.txt``).
+7. fit: the training entry point at full flagship width. A YAML config
+   (the path phase's flagship with 20 epochs, validation from epoch 0,
+   ``minimal_test``) is read by ``scrubvae_torch.params.read.config`` and
+   trained by ``scrubvae_torch.train.trainer.train`` on synthetic splits
+   built in memory (train: 4 ids, at least 3 steps an epoch at batch 512;
+   val: one partial batch, so the eval tail runs). ``metrics.csv`` must
+   hold 20 rows with a finite ``total_train``, the validation losses and
+   finite generative-restrictiveness R^2 at epochs 5, 10, 15 and 20;
+   weights at those epochs and the full state at 20; 2 optimizer launches
+   a step over a table of all 130 leaves, epoch after epoch of GR re-init.
+   Then a resume from epoch 20 (``model.load_model``, ``start_epoch``) must
+   restore parameters, moments, step counts, MALS state and generator
+   state bit for bit as the first run held them, and epoch 21 must train
+   with finite losses. Prints the epoch, step, validation, save and
+   restore times and the peak memory beside the card's name and power
+   limit. The card's machine has no ``h5py``, so this phase builds its
+   splits in memory; the route through pose files on disk and the
+   ``python -m scrubvae_torch.train_model`` CLI is covered by the tests on
+   the CPU (``tests/test_torch_port_checkpoint.py``,
+   ``tests/test_torch_port_fit.py``).
 
 Prints one JSON line describing the kernels, the card's name and power limit
 again, then, as its last line, the device record. Needs one CUDA GPU and
@@ -43,8 +63,10 @@ import json
 import math
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -54,7 +76,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
 ADAMW_FLOPS_PER_ELEM = 20
 ROOT = pathlib.Path(__file__).resolve().parent
-PHASES = ("kernel", "parity", "path")
+PHASES = ("kernel", "parity", "path", "fit")
 DEVICE = "cuda"
 
 
@@ -323,7 +345,7 @@ def bench_config(batch: int, z_dim: int, ch, bf16: bool) -> dict:
         "train": {
             "lr": 1e-4, "optimizer": "adamw", "lr_schedule": "cawr", "num_epochs": 1, "seed": 0,
             "mesh": None, "clip_norm": 0, "fused_optimizer": True,
-            "param_dtype": "bf16" if bf16 else "f32",
+            "param_dtype": "bf16" if bf16 else "f32", "minimal_test": True,
         },
         "loss": {
             "rotation": 1.0, "prior": 0.001, "root": 0.01, "jpe": 1.0,
@@ -543,11 +565,236 @@ def profile_phase(trainer, rows, loss_scale, steps: int = 5) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the training entry point at full width
+# ---------------------------------------------------------------------------
+
+FIT_EPOCHS = 20
+MALS_FIELDS = ("Sxx0", "Sxy0", "Sxx1", "Sxy1", "lam0", "lam1")
+
+
+def _fit_splits():
+    """Synthetic train (4 ids x 1200 frames) and val (2 ids x 300 frames)
+    splits, on the card."""
+    from scrubvae_torch.data.dataset import StreamDataset
+    from scrubvae_torch.data.pipeline import build_frame_store
+    from scrubvae_torch.data.skeleton import load_skeleton
+    from scrubvae_torch.data.synthetic import synthetic_pose_stream
+
+    skel = load_skeleton(ROOT / "configs" / "mouse_skeleton.yaml")
+    out = {}
+    for label, seed, per_id, n_ids in (("train", 0, 1200, 4), ("val", 1, 300, 2)):
+        pose, ids = synthetic_pose_stream(skel, n_frames=per_id * n_ids, n_ids=n_ids, seed=seed)
+        store = build_frame_store(pose, ids, skel, window=51, stride=2, device=DEVICE)
+        mid = store.ids[store.starts + 51 // 2].cpu().numpy()
+        out[label] = StreamDataset(
+            store, skel, KEYS, "midfwd", arena_size=ARENA, discrete_classes={"ids": np.unique(mid)},
+            device=DEVICE, label=label,
+        )
+    return out
+
+
+def _fit_config(run: pathlib.Path, model: dict = None, **train: dict) -> dict:
+    """Write the flagship's config for ``train``, with ``model`` and
+    ``train`` entries overridden, to ``run/model_config.yaml`` and read it
+    back through the port's config reader."""
+    import yaml
+
+    from scrubvae_torch.params import read
+
+    cfg = bench_config(512, 128, FULL_CH, True)
+    cfg["train"].update({"num_epochs": FIT_EPOCHS, "eval_start_epoch": 0, **train})
+    cfg["model"].update(model or {})
+    run.mkdir(parents=True)
+    (run / "model_config.yaml").write_text(yaml.safe_dump(cfg))
+    return read.config(run / "model_config.yaml")
+
+
+def _trainer_state(trainer) -> dict:
+    st = trainer.state
+    mals = st.scrub_state["moving_avg_lsq"]["avg_speed_3d"]
+    return {
+        "params": [p.detach().clone() for p in trainer.model.parameters()],
+        "buffers": [b.clone() for b in trainer.model.buffers()],
+        "mu": [m.clone() for m in st.opt_state.mu],
+        "nu": [n.clone() for n in st.opt_state.nu],
+        "count": st.opt_state.count.clone(),
+        "steps": (st.opt_state.step, st.step),
+        "mals": [getattr(mals, f).clone() for f in MALS_FIELDS],
+        "generator": st.generator.get_state().clone(),
+    }
+
+
+def _same_state(a: dict, b: dict) -> list:
+    """Names of the parts of two ``_trainer_state`` records that differ."""
+    bad = [
+        part for part in ("params", "buffers", "mu", "nu", "mals")
+        if len(a[part]) != len(b[part])
+        or not all(
+            bits_equal(x, y) if x.is_floating_point() else torch.equal(x, y) for x, y in zip(a[part], b[part])
+        )
+    ]
+    if not torch.equal(a["count"], b["count"]):
+        bad.append("count")
+    if a["steps"] != b["steps"]:
+        bad.append("steps")
+    if not torch.equal(a["generator"], b["generator"]):
+        bad.append("generator")
+    return bad
+
+
+class _Timer:
+    """Wraps functions of a module or class so each call is timed on the
+    host clock between two synchronizes; ``undo`` puts them back."""
+
+    def __init__(self):
+        self.times: dict = {}
+        self._saved = []
+
+    def wrap(self, owner, name: str, label: str) -> None:
+        fn = getattr(owner, name)
+        self._saved.append((owner, name, fn))
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            self.times.setdefault(label, []).append(time.perf_counter() - t0)
+            return out
+
+        setattr(owner, name, timed)
+
+    def undo(self) -> None:
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+        self._saved = []
+
+    def mean_ms(self, label: str) -> float:
+        return float(np.mean(self.times[label])) * 1e3
+
+
+def fit_phase(card: str) -> dict:
+    """``train(config, datasets, model, info)`` for 20 epochs at full
+    flagship width, then a resume from epoch 20 for epoch 21 (see the
+    module docstring)."""
+    import csv
+
+    from scrubvae_torch import factory
+    from scrubvae_torch.ops import fused_adamw as fa
+    from scrubvae_torch.train import trainer as trainer_mod
+    from scrubvae_torch.utils import checkpoint as ckpt
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_fit_"))
+    timer = _Timer()
+    try:
+        datasets = _fit_splits()
+        n_train, n_val = len(datasets["train"]), len(datasets["val"])
+        if n_train // 512 < 3 or not 0 < n_val < 512:
+            raise AssertionError(f"fit: {n_train} train and {n_val} val windows")
+        run = tmp / "run"
+        config = _fit_config(run)
+
+        def build():
+            return factory.build_model(
+                config["model"], config["disentangle"], n_keypts=18, direction_process="midfwd",
+                arena_size=ARENA, discrete_classes=datasets["train"].discrete_classes,
+                loss_keys=config["loss"].keys(), device=DEVICE,
+            )
+
+        model, info = build()
+        for owner, name, label in (
+            (trainer_mod.Trainer, "train_epoch", "train_epoch"),
+            (trainer_mod.Trainer, "test_epoch", "val_epoch"),
+            (ckpt, "save_weights", "save_weights"),
+            (ckpt, "save_train_state", "save_train_state"),
+            (ckpt, "load_weights", "load_weights"),
+            (ckpt, "load_train_state", "load_train_state"),
+        ):
+            timer.wrap(owner, name, label)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.fused_adamw_multi.launches = 0
+        fa.fused_adamw_leaf.launches = 0
+        t0 = time.perf_counter()
+        trainer = trainer_mod.train(config, datasets, model, info, device=DEVICE)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = fa.fused_adamw_multi.launches + fa.fused_adamw_leaf.launches
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        ended = _trainer_state(trainer)
+
+        steps = trainer.steps_per_epoch * FIT_EPOCHS
+        params = list(trainer.model.parameters())
+        table = trainer.state.opt_state.table
+        table.check_storage(params, trainer.state.opt_state.mu, trainer.state.opt_state.nu)
+        if (len(params), len(table.w), len(table.batches)) != (FLAGSHIP_LEAVES, FLAGSHIP_LEAVES, 2):
+            raise AssertionError(
+                f"fit: {len(params)} leaves, a table of {len(table.w)} in {len(table.batches)} launches"
+            )
+        if launches != 2 * steps or trainer.state.opt_state.step != steps:
+            raise AssertionError(f"fit: {launches} optimizer launches in {steps} steps; expected 2 a step")
+        with open(run / "metrics.csv", newline="") as f:
+            rows = list(csv.DictReader(f))
+        if [int(r["epoch"]) for r in rows] != list(range(1, FIT_EPOCHS + 1)):
+            raise AssertionError(f"fit: metrics.csv epochs {[r['epoch'] for r in rows]}")
+        test_keys = ("total_test", "r2_gen_restrict_avg_speed_3d_test", "r2_gen_restrict_heading_test")
+        for r in rows:
+            if not math.isfinite(float(r["total_train"])):
+                raise AssertionError(f"fit: total_train {r['total_train']} at epoch {r['epoch']}")
+            if int(r["epoch"]) % 5 == 0 and not all(r[k] and math.isfinite(float(r[k])) for k in test_keys):
+                raise AssertionError(f"fit: validation metrics at epoch {r['epoch']}: {[r[k] for k in test_keys]}")
+        if list(factory.all_saved_epochs(run)) != [5, 10, 15, 20] or sorted(
+            p.name for p in (run / "checkpoints").iterdir()
+        ) != ["epoch_20.pt"]:
+            raise AssertionError("fit: weights at 5, 10, 15, 20 and the full state at 20 expected")
+
+        # resume from epoch 20
+        config = _fit_config(
+            tmp / "resume", num_epochs=FIT_EPOCHS + 1, model={"load_model": str(run), "start_epoch": FIT_EPOCHS}
+        )
+        model, info = build()
+        resumed = trainer_mod.Trainer(config, datasets, model, info, device=DEVICE)
+        bad = _same_state(_trainer_state(resumed), ended)
+        if bad:
+            raise AssertionError(f"fit: resume from epoch {FIT_EPOCHS} differs in {bad}")
+        resumed.fit()
+        with open(tmp / "resume" / "metrics.csv", newline="") as f:
+            rows21 = list(csv.DictReader(f))
+        if [r["epoch"] for r in rows21] != [str(FIT_EPOCHS + 1)] or not all(
+            math.isfinite(float(v)) for k, v in rows21[0].items() if k.endswith("_train")
+        ):
+            raise AssertionError(f"fit: epoch {FIT_EPOCHS + 1} after the resume: {rows21}")
+
+        epoch_ms = timer.mean_ms("train_epoch")
+        rec = {
+            "card": card, "epochs": FIT_EPOCHS, "train_windows": n_train, "val_windows": n_val,
+            "steps_per_epoch": trainer.steps_per_epoch, "fit_s": fit_s,
+            "train_epoch_ms": epoch_ms, "step_ms": epoch_ms / trainer.steps_per_epoch,
+            "val_epoch_ms": timer.mean_ms("val_epoch"), "val_epochs": len(timer.times["val_epoch"]),
+            "save_weights_ms": timer.mean_ms("save_weights"),
+            "weights_bytes": (run / "weights" / "epoch_20.pt").stat().st_size,
+            "save_train_state_ms": timer.mean_ms("save_train_state"),
+            "train_state_bytes": (run / "checkpoints" / "epoch_20.pt").stat().st_size,
+            "restore_ms": timer.mean_ms("load_weights") + timer.mean_ms("load_train_state"),
+            "peak_mem_gib": peak_gib, "optimizer_launches": launches, "launches_per_step": launches / steps,
+            "leaves": len(params), "resume_bitwise_equal": True,
+            "first_total_train": float(rows[0]["total_train"]), "last_total_train": float(rows[-1]["total_train"]),
+            "epoch21_total_train": float(rows21[0]["total_train"]),
+            "r2_gen_restrict_epoch20": {k: float(rows[-1][k]) for k in test_keys[1:]},
+        }
+        log("fit flagship train entry point: " + json.dumps(rec))
+        return rec
+    finally:
+        timer.undo()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
 
-def kernels_line(kernel: dict, path: dict) -> dict:
+def kernels_line(kernel: dict, path: dict, fit: dict) -> dict:
     """One record per kernel of the main path: its launches on the path run
     and, at the fc_sigma shape, its time beside the plain version's, the
     bound and the library call's, for the f32 variant (where
@@ -584,6 +831,8 @@ def kernels_line(kernel: dict, path: dict) -> dict:
         "pass_bound_ms": leaf_set["pass_bound_ms"],
         "pass_library_ms": leaf_set["pass_library_ms"],
         "launches_per_step": path["launches_per_step"],
+        "fit_launches": None if fit is None else fit["optimizer_launches"],
+        "fit_launches_per_step": None if fit is None else fit["launches_per_step"],
     }]}
 
 
@@ -630,8 +879,11 @@ def main() -> int:
         path, rows, loss_scale = path_phase(*flagship)
         if "profile" in phases:
             profile_phase(flagship[0], rows, loss_scale)
+    flagship = None  # frees the path phase's trainer before the fit phase
+    torch.cuda.empty_cache()
+    fit = fit_phase(smi[0] if smi else "nvidia-smi: no output") if "fit" in phases else None
     if kernel is not None and path is not None:
-        log(json.dumps(kernels_line(kernel, path)))
+        log(json.dumps(kernels_line(kernel, path, fit)))
     log(smi[0] if smi else "nvidia-smi: no output")
     print(json.dumps({
         "ok": True,

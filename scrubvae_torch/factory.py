@@ -1,15 +1,24 @@
-"""Configs -> model and scrubber state (counterpart of ``feat_dims``,
-``in_channels_for``, ``build_model`` and ``init_scrub_state`` in
-``scrubvae_tpu/factory.py``; ``rcnn`` only)."""
+"""Configs -> data, model and scrubber state (counterpart of ``feat_dims``,
+``in_channels_for``, ``build_model``, ``init_scrub_state``,
+``_discrete_classes_for``, ``mouse_data``, ``data_and_model`` and
+``all_saved_epochs`` in ``scrubvae_tpu/factory.py``; ``rcnn`` only, and
+raw pose files only: the preprocessed per-key layout, host streaming and
+the parkinsons recoding raise ``NotImplementedError``)."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import re
+from pathlib import Path
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
+from scrubvae_torch.data.dataset import StreamDataset
+from scrubvae_torch.data.pipeline import build_frame_store
+from scrubvae_torch.data.pose_io import read_pose_h5
+from scrubvae_torch.data.skeleton import load_skeleton
 from scrubvae_torch.device import resolve_device
 from scrubvae_torch.models import scrubbers as scr
 from scrubvae_torch.models.layers import (
@@ -23,7 +32,16 @@ from scrubvae_torch.models.layers import (
 from scrubvae_torch.models.residual import ResVAE
 from scrubvae_torch.models.scrubvae import ScrubVAE
 
-__all__ = ["feat_dims", "in_channels_for", "build_model", "init_weights", "init_scrub_state"]
+__all__ = [
+    "feat_dims",
+    "in_channels_for",
+    "build_model",
+    "init_weights",
+    "init_scrub_state",
+    "mouse_data",
+    "data_and_model",
+    "all_saved_epochs",
+]
 
 
 def feat_dims(model_config: dict, discrete_classes: Optional[dict] = None) -> dict:
@@ -167,3 +185,122 @@ def init_scrub_state(
             for feat in methods["moving_avg_lsq"]
         }
     return scrub_state
+
+
+def _discrete_classes_for(ids: np.ndarray, dataset_name: str) -> dict:
+    """Discrete-class maps (reference get/data.py:73-95): the ids seen."""
+    if dataset_name == "parkinsons":
+        raise NotImplementedError(
+            "scrubvae_torch has no parkinsons id/pd_label recoding yet (ROADMAP.md A8)"
+        )
+    return {"ids": np.unique(ids)}
+
+
+def mouse_data(
+    data_config: dict,
+    train_val_test: str = "train",
+    data_keys: Sequence[str] = ("x6d", "root", "offsets"),
+    skeleton_path: Optional[str] = None,
+    stride: Optional[int] = None,
+    window: Optional[int] = None,
+    device="cuda",
+) -> StreamDataset:
+    """A ``StreamDataset`` on ``device`` from the raw pose file
+    ``{data_path}/{dataset}/{split}/pose.h5`` (or ``{dataset}/pose.h5`` for
+    ``full``): frame store built once, windows assembled per batch."""
+    dev = resolve_device(device)
+    data_path = Path(data_config["data_path"])
+    skeleton = load_skeleton(skeleton_path or data_path / "mouse_skeleton.yaml")
+    dataset_name = data_config.get("dataset") or "synthetic"
+    window = window or data_config.get("window") or 51
+    stride = stride or data_config.get("stride") or 2
+    data_keys = list(data_keys)
+    if "ids" not in data_keys:
+        data_keys = data_keys + ["ids"]
+    if data_config.get("host_stream") and train_val_test == "train":
+        raise NotImplementedError("scrubvae_torch has no host streaming (data.host_stream) yet (ROADMAP.md A8)")
+
+    split_pose_file = data_path / dataset_name / train_val_test / "pose.h5"
+    pose_file = data_path / dataset_name / "pose.h5"
+    if not (split_pose_file.exists() or (train_val_test == "full" and pose_file.exists())):
+        raise NotImplementedError(
+            f"no raw pose file {split_pose_file}; scrubvae_torch does not read the "
+            "preprocessed per-key h5 layout yet (ROADMAP.md A3)"
+        )
+    pose, ids = read_pose_h5(split_pose_file if split_pose_file.exists() else pose_file)
+    store = build_frame_store(
+        pose, ids, skeleton, window=window, stride=stride,
+        speed_threshold=2.25 if data_config.get("remove_speed_outliers") is not False else None,
+        exact_offsets=bool(data_config.get("exact_offsets")),
+        part_centered_speed=bool(data_config.get("part_centered_speed")),
+        device=dev,
+    )
+    mid_ids = store.ids[store.starts + window // 2].cpu().numpy()
+    return StreamDataset(
+        store=store,
+        skeleton=skeleton,
+        data_keys=tuple(data_keys),
+        direction_process=data_config.get("direction_process") or "midfwd",
+        arena_size=(
+            np.asarray(data_config["arena_size"], dtype=np.float32)
+            if data_config.get("arena_size") is not None
+            else None
+        ),
+        discrete_classes=_discrete_classes_for(mid_ids, dataset_name),
+        device=dev,
+        label=train_val_test,
+    )
+
+
+def data_and_model(
+    config: dict,
+    train_val_test: Sequence[str] = ("train", "val"),
+    data_keys: Sequence[str] = ("x6d", "root", "offsets", "target_pose"),
+    use_default_val_keys: bool = True,
+    device="cuda",
+):
+    """Datasets of the splits and the model built for them (reference
+    get/get.py:7-75). Returns (datasets, model, info)."""
+    if use_default_val_keys:
+        if config["data"].get("dataset") == "parkinsons":
+            val_keys = ["ids", "x6d", "root", "offsets", "target_pose", "fluorescence", "pd_label"]
+        else:
+            val_keys = ["ids", "x6d", "root", "offsets", "target_pose", "avg_speed_3d", "heading"]
+    else:
+        val_keys = list(data_keys)
+    # one window for the loaders and the model, from model or data
+    window = config["model"].get("window") or config["data"].get("window") or 51
+    enc_dp = config["data"].get("encoder_direction_process")
+    if enc_dp and enc_dp != config["data"].get("direction_process"):
+        raise NotImplementedError("scrubvae_torch has no data.encoder_direction_process yet")
+
+    datasets = {
+        label: mouse_data(
+            config["data"], train_val_test=label,
+            data_keys=val_keys if label == "val" else list(data_keys),
+            window=window, device=device,
+        )
+        for label in train_val_test
+    }
+    first = datasets[list(train_val_test)[0]]
+    model_config = dict(config["model"])
+    model_config["window"] = window
+    if (config.get("train") or {}).get("precision"):
+        model_config.setdefault("precision", config["train"]["precision"])
+    model, info = build_model(
+        model_config,
+        config["disentangle"],
+        n_keypts=first.n_keypts,
+        direction_process=config["data"].get("direction_process"),
+        arena_size=first.arena_size,
+        discrete_classes=first.discrete_classes,
+        loss_keys=(config.get("loss") or {}).keys(),
+        device=device,
+    )
+    return datasets, model, info
+
+
+def all_saved_epochs(path: str) -> np.ndarray:
+    """Epoch numbers with saved weights (reference get/get.py:78-84)."""
+    epochs = {int(re.findall(r"\d+", f.name)[0]) for f in (Path(path) / "weights").glob("epoch*")}
+    return np.asarray(sorted(epochs), dtype=int)

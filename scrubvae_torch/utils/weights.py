@@ -164,7 +164,8 @@ def from_jax_variables(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     unused = sorted(set(flat) - used)
     if unused:
         raise KeyError(f"from_jax_variables: no port counterpart for {unused}")
-    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+    # ascontiguousarray makes a 0-d array 1-d; the reshape keeps scalars 0-d
+    return {k: torch.from_numpy(np.ascontiguousarray(v).reshape(v.shape)) for k, v in sd.items()}
 
 
 def mals_state_from_numpy(arrays: Dict[str, np.ndarray], like: MALSState, device=None) -> MALSState:

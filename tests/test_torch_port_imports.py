@@ -17,7 +17,11 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 def test_importing_every_module_pulls_in_no_jax():
     mods = [m.name for m in pkgutil.walk_packages(scrubvae_torch.__path__, "scrubvae_torch.")]
-    assert "scrubvae_torch.ops.fused_adamw" in mods and "scrubvae_torch.train.trainer" in mods
+    for m in (
+        "ops.fused_adamw", "train.trainer", "params.read", "params.param_keys", "evals.restrictiveness",
+        "train_model", "utils.checkpoint", "utils.logging", "data.pose_io",
+    ):
+        assert "scrubvae_torch." + m in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -28,6 +32,22 @@ def test_importing_every_module_pulls_in_no_jax():
     res = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_pose_io_imports_without_h5py():
+    """h5py is imported when a file is read or written, not before."""
+    code = (
+        "import sys\n"
+        "sys.modules['h5py'] = None\n"
+        "import scrubvae_torch.data.pose_io, scrubvae_torch.factory, scrubvae_torch.train_model\n"
+        "try:\n"
+        "    scrubvae_torch.data.pose_io.read_pose_h5('missing.h5')\n"
+        "except ImportError:\n"
+        "    sys.exit(0)\n"
+        "sys.exit(1)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
 
 
@@ -58,7 +78,7 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked_for(monkeypatch):
     cfg = {
         "data": {"batch_size": 4},
         "disentangle": dis,
-        "train": {"optimizer": "adamw", "lr": 1e-4},
+        "train": {"optimizer": "adamw", "lr": 1e-4, "minimal_test": True},
         "loss": {"rotation": 1.0},
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):

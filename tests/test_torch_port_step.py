@@ -93,7 +93,7 @@ def bench_config(out_path) -> dict:
         "train": {
             "lr": 1e-4, "optimizer": "adamw", "lr_schedule": "cawr", "num_epochs": 1, "seed": 0,
             "mesh": None, "donate": True, "clip_norm": 0, "fused_optimizer": True,
-            "param_dtype": "f32",
+            "param_dtype": "f32", "minimal_test": True,
         },
         "loss": {
             "rotation": 1.0, "prior": 0.001, "root": 0.01, "jpe": 1.0,
