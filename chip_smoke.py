@@ -32,24 +32,35 @@ Phases (each one fails the run on error; nothing is caught and swallowed):
    (torch.profiler; the table goes to ``build/profile_path.txt``).
 7. fit: the training entry point at full flagship width. A YAML config
    (the path phase's flagship with 20 epochs, validation from epoch 0,
-   ``minimal_test``) is read by ``scrubvae_torch.params.read.config`` and
-   trained by ``scrubvae_torch.train.trainer.train`` on synthetic splits
-   built in memory (train: 4 ids, at least 3 steps an epoch at batch 512;
-   val: one partial batch, so the eval tail runs). ``metrics.csv`` must
-   hold 20 rows with a finite ``total_train``, the validation losses and
-   finite generative-restrictiveness R^2 at epochs 5, 10, 15 and 20;
-   weights at those epochs and the full state at 20; 2 optimizer launches
-   a step over a table of all 130 leaves, epoch after epoch of GR re-init.
-   Then a resume from epoch 20 (``model.load_model``, ``start_epoch``) must
+   without ``minimal_test``, so decodability runs) is read by
+   ``scrubvae_torch.params.read.config`` and trained by
+   ``scrubvae_torch.train.trainer.train`` on synthetic splits built in
+   memory (train: 4 ids, at least 3 steps an epoch at batch 512; val: 4 ids
+   x 2600 frames, 5100 windows, so 100 rows for the regression folds and
+   1020 for the classification folds, and a partial tail batch).
+   ``metrics.csv`` must hold 20 rows with a finite ``total_train``, the
+   validation losses and finite generative-restrictiveness R^2 at epochs 5,
+   10, 15 and 20, and there every decodability column (linear and MLP R^2 of
+   avg_speed_3d and heading, logistic and QDA accuracy of the ids) finite,
+   with no ``*_nanfolds`` column: a failed fold prints its exception, saves
+   that mu to ``chiprun_out/`` and fails the phase. Weights at those epochs
+   and the full state at 20; 2 optimizer launches a step over a table of
+   all 130 leaves, epoch after epoch of GR re-init. Then the epoch-20
+   validation mu and labels go through the decodability estimators on the
+   card and on the CPU: the same folds, linear R^2 within 1e-9 (float64),
+   QDA and LDA predictions identical, logistic predictions within one
+   sample a fold, MLP R^2 within 1e-3 from the same CPU-drawn init. Then a
+   resume from epoch 20 (``model.load_model``, ``start_epoch``) must
    restore parameters, moments, step counts, MALS state and generator
    state bit for bit as the first run held them, and epoch 21 must train
-   with finite losses. Prints the epoch, step, validation, save and
-   restore times and the peak memory beside the card's name and power
-   limit. The card's machine has no ``h5py``, so this phase builds its
-   splits in memory; the route through pose files on disk and the
-   ``python -m scrubvae_torch.train_model`` CLI is covered by the tests on
-   the CPU (``tests/test_torch_port_checkpoint.py``,
-   ``tests/test_torch_port_fit.py``).
+   with finite losses. Prints the epoch, step, validation, decodability (by
+   probe), save and restore times and the peak memory beside the card's
+   name and power limit. The card's machine has no ``h5py`` and no
+   ``sklearn``, so this phase builds its splits in memory; the route through
+   pose files on disk and the ``python -m scrubvae_torch.train_model`` CLI,
+   and the estimators against the JAX package's sklearn ones, are covered
+   by the tests on the CPU (``tests/test_torch_port_checkpoint.py``,
+   ``tests/test_torch_port_fit.py``, ``tests/test_torch_port_decodability.py``).
 
 Prints one JSON line describing the kernels, the card's name and power limit
 again, then, as its last line, the device record. Needs one CUDA GPU and
@@ -68,6 +79,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -570,10 +582,22 @@ def profile_phase(trainer, rows, loss_scale, steps: int = 5) -> None:
 
 FIT_EPOCHS = 20
 MALS_FIELDS = ("Sxx0", "Sxy0", "Sxx1", "Sxy1", "lam0", "lam1")
+DECOD_COLUMNS = tuple(
+    f"{m}_{s}"
+    for m in (
+        "r2_avg_speed_3d_lin", "r2_avg_speed_3d_mlp", "r2_heading_lin", "r2_heading_mlp",
+        "acc_ids_log", "acc_ids_qda",
+    )
+    for s in ("mean", "std")
+)
+# card against CPU on the same mu: the bands of the CPU tests
+# (tests/test_torch_port_decodability.py)
+LIN_R2_CARD_CPU = 1e-9
+MLP_R2_CARD_CPU = 1e-3
 
 
 def _fit_splits():
-    """Synthetic train (4 ids x 1200 frames) and val (2 ids x 300 frames)
+    """Synthetic train (4 ids x 1200 frames) and val (4 ids x 2600 frames)
     splits, on the card."""
     from scrubvae_torch.data.dataset import StreamDataset
     from scrubvae_torch.data.pipeline import build_frame_store
@@ -582,7 +606,7 @@ def _fit_splits():
 
     skel = load_skeleton(ROOT / "configs" / "mouse_skeleton.yaml")
     out = {}
-    for label, seed, per_id, n_ids in (("train", 0, 1200, 4), ("val", 1, 300, 2)):
+    for label, seed, per_id, n_ids in (("train", 0, 1200, 4), ("val", 1, 2600, 4)):
         pose, ids = synthetic_pose_stream(skel, n_frames=per_id * n_ids, n_ids=n_ids, seed=seed)
         store = build_frame_store(pose, ids, skel, window=51, stride=2, device=DEVICE)
         mid = store.ids[store.starts + 51 // 2].cpu().numpy()
@@ -594,14 +618,16 @@ def _fit_splits():
 
 
 def _fit_config(run: pathlib.Path, model: dict = None, **train: dict) -> dict:
-    """Write the flagship's config for ``train``, with ``model`` and
-    ``train`` entries overridden, to ``run/model_config.yaml`` and read it
-    back through the port's config reader."""
+    """Write the flagship's config for ``train``, without ``minimal_test``
+    and with ``model`` and ``train`` entries overridden, to
+    ``run/model_config.yaml`` and read it back through the port's config
+    reader."""
     import yaml
 
     from scrubvae_torch.params import read
 
     cfg = bench_config(512, 128, FULL_CH, True)
+    del cfg["train"]["minimal_test"]
     cfg["train"].update({"num_epochs": FIT_EPOCHS, "eval_start_epoch": 0, **train})
     cfg["model"].update(model or {})
     run.mkdir(parents=True)
@@ -644,10 +670,12 @@ def _same_state(a: dict, b: dict) -> list:
 
 class _Timer:
     """Wraps functions of a module or class so each call is timed on the
-    host clock between two synchronizes; ``undo`` puts them back."""
+    host clock between two synchronizes, and its arguments kept in
+    ``last``; ``undo`` puts them back."""
 
     def __init__(self):
         self.times: dict = {}
+        self.last: dict = {}
         self._saved = []
 
     def wrap(self, owner, name: str, label: str) -> None:
@@ -655,6 +683,7 @@ class _Timer:
         self._saved.append((owner, name, fn))
 
         def timed(*a, **k):
+            self.last[label] = a
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*a, **k)
@@ -672,6 +701,88 @@ class _Timer:
     def mean_ms(self, label: str) -> float:
         return float(np.mean(self.times[label])) * 1e3
 
+    def total_ms(self, label: str) -> float:
+        return float(np.sum(self.times[label])) * 1e3
+
+
+def decodability_card_vs_cpu(z: np.ndarray, val_ds, window: int) -> dict:
+    """The estimators of ``Trainer.decodability_metrics`` on the card and on
+    the CPU, on the same validation mu and labels and the same host-drawn
+    folds: each rand_cv's 5 folds (linear R^2 within ``LIN_R2_CARD_CPU``,
+    MLP R^2 within ``MLP_R2_CARD_CPU``, the MLP starting from the same
+    CPU-drawn init), and per classification fold the QDA and LDA
+    predictions (identical) and the logistic ones (at most one sample
+    apart)."""
+    from scrubvae_torch.evals import metrics as em
+    from scrubvae_torch.evals import probes
+
+    full = val_ds.batch(torch.arange(len(val_ds), device=DEVICE))
+    labels = {k: full[k].cpu() for k in ("avg_speed_3d", "heading", "ids")}
+    devices = (DEVICE, "cpu")
+    rec = {"lin_r2_max_diff": 0.0, "mlp_r2_max_diff": 0.0}
+    for key in ("avg_speed_3d", "heading"):
+        for name, fn, band in (
+            ("lin", em.linear_rand_cv, LIN_R2_CARD_CPU), ("mlp", em.mlp_rand_cv, MLP_R2_CARD_CPU),
+        ):
+            card, cpu = (np.asarray(fn(z, labels[key], window, 5, device=d)) for d in devices)
+            if card.shape != cpu.shape or len(card) != 5:
+                raise AssertionError(f"fit: {name} folds of {key}: card {card}, CPU {cpu}")
+            diff = float(np.abs(card - cpu).max())
+            rec[f"{name}_r2_max_diff"] = max(rec[f"{name}_r2_max_diff"], diff)
+            if not diff <= band:
+                raise AssertionError(f"fit: {name} R^2 of {key}, card {card} against CPU {cpu}")
+    cw = em.decodability_class_window("synthetic", window)
+    cz, cy = z[::cw], labels["ids"][::cw].numpy()
+    differ = {"qda": [], "lda": [], "logistic": []}
+    retried = 0
+    for tr, te in em.kfold_indices(len(cz), 5):
+        preds = {}
+        try:
+            probes.qda_fit(torch.as_tensor(cz[tr]).to(DEVICE), torch.as_tensor(cy[tr]).to(DEVICE))
+        except ValueError as e:
+            if "full rank" not in str(e):
+                raise
+            retried += 1
+        for d in devices:
+            ztr, ytr, zte = (torch.as_tensor(a).to(d) for a in (cz[tr], cy[tr], cz[te]))
+            preds[d] = {
+                "qda": probes.qda_predict(em.qda_fit_retry(ztr, ytr), zte),
+                "lda": probes.lda_predict(probes.lda_fit(ztr, ytr), zte),
+                "logistic": probes.logistic_predict(ztr, ytr, zte),
+            }
+        for name in differ:
+            differ[name].append(int((preds[DEVICE][name].cpu() != preds["cpu"][name]).sum()))
+    rec.update({f"{name}_differing_per_fold": v for name, v in differ.items()})
+    if any(differ["qda"]) or any(differ["lda"]) or max(differ["logistic"]) > 1:
+        raise AssertionError(f"fit: card and CPU predictions differ: {differ}")
+    rec["qda_retry_folds"] = retried
+
+    # what shaped the estimators, read on this mu: the folds where QDA took
+    # its retry (above), how far from isotropic a classification fold is and
+    # the Newton iterations its logistic fit takes; how far apart the card
+    # and the CPU land with the MLP probe trained in float32, not float64
+    tr = em.kfold_indices(len(cz), 5)[0][0]
+    xc = torch.as_tensor(cz[tr], device=DEVICE).double()
+    sv = torch.linalg.svdvals(xc - xc.mean(0))
+    rec["class_fold_singular_value_ratio"] = float(sv[0] / sv[-1])
+    onehot = torch.nn.functional.one_hot(torch.unique(torch.as_tensor(cy[tr]), return_inverse=True)[1])
+    rec["class_fold_logistic_iterations"] = probes.logistic_fit(xc, onehot.to(DEVICE).double())[2]
+    dz, dy = z[::window], labels["avg_speed_3d"][::window]
+    tr, te = em.kfold_indices(len(dz), 5)[0]
+    r2 = {}
+    for d in devices:
+        model = probes.MLPProbe(probes.probe_init(z.shape[1], dy.shape[1]), device=d).float()
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=0.01)
+        x, y = torch.as_tensor(dz[tr]).to(d), dy[tr].to(d).float()
+        for _ in range(200):
+            opt.zero_grad()
+            ((model(x) - y) ** 2).sum().backward()
+            opt.step()
+        with torch.no_grad():
+            r2[d] = probes.r2_score(dy[te], model(torch.as_tensor(dz[te]).to(d)).cpu())
+    rec["mlp_float32_r2_card_cpu_diff"] = abs(r2[DEVICE] - r2["cpu"])
+    return rec
+
 
 def fit_phase(card: str) -> dict:
     """``train(config, datasets, model, info)`` for 20 epochs at full
@@ -680,6 +791,7 @@ def fit_phase(card: str) -> dict:
     import csv
 
     from scrubvae_torch import factory
+    from scrubvae_torch.evals import metrics as em
     from scrubvae_torch.ops import fused_adamw as fa
     from scrubvae_torch.train import trainer as trainer_mod
     from scrubvae_torch.utils import checkpoint as ckpt
@@ -689,7 +801,7 @@ def fit_phase(card: str) -> dict:
     try:
         datasets = _fit_splits()
         n_train, n_val = len(datasets["train"]), len(datasets["val"])
-        if n_train // 512 < 3 or not 0 < n_val < 512:
+        if n_train // 512 < 3 or n_val < 5000 or n_val % 512 == 0:
             raise AssertionError(f"fit: {n_train} train and {n_val} val windows")
         run = tmp / "run"
         config = _fit_config(run)
@@ -709,6 +821,11 @@ def fit_phase(card: str) -> dict:
             (ckpt, "save_train_state", "save_train_state"),
             (ckpt, "load_weights", "load_weights"),
             (ckpt, "load_train_state", "load_train_state"),
+            (trainer_mod.Trainer, "decodability_metrics", "decodability"),
+            (em, "linear_rand_cv", "linear"),
+            (em, "mlp_rand_cv", "mlp"),
+            (em, "log_class_rand_cv", "logistic"),
+            (em, "qda_rand_cv", "qda"),
         ):
             timer.wrap(owner, name, label)
         torch.cuda.synchronize()
@@ -716,9 +833,16 @@ def fit_phase(card: str) -> dict:
         fa.fused_adamw_multi.launches = 0
         fa.fused_adamw_leaf.launches = 0
         t0 = time.perf_counter()
-        trainer = trainer_mod.train(config, datasets, model, info, device=DEVICE)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            trainer = trainer_mod.train(config, datasets, model, info, device=DEVICE)
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
+        for w in caught:
+            log(f"fit: warning during train: {w.category.__name__}: {w.message}")
+        # read before the card-against-CPU comparison calls the estimators again
+        n_eval = len(timer.times["decodability"])
+        decod_ms = {k: timer.total_ms(k) / n_eval for k in ("linear", "mlp", "logistic", "qda")}
         launches = fa.fused_adamw_multi.launches + fa.fused_adamw_leaf.launches
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         ended = _trainer_state(trainer)
@@ -743,6 +867,24 @@ def fit_phase(card: str) -> dict:
                 raise AssertionError(f"fit: total_train {r['total_train']} at epoch {r['epoch']}")
             if int(r["epoch"]) % 5 == 0 and not all(r[k] and math.isfinite(float(r[k])) for k in test_keys):
                 raise AssertionError(f"fit: validation metrics at epoch {r['epoch']}: {[r[k] for k in test_keys]}")
+        z20 = timer.last["decodability"][1]
+        nanfolds = [k for k in rows[0] if k.endswith("_nanfolds")]
+        missing = [k for k in DECOD_COLUMNS if k not in rows[0]]
+        bad = [
+            (r["epoch"], k, r[k]) for r in rows if int(r["epoch"]) % 5 == 0
+            for k in DECOD_COLUMNS if k in r and not (r[k] and math.isfinite(float(r[k])))
+        ]
+        if nanfolds or missing or bad:
+            out = ROOT / "chiprun_out"
+            out.mkdir(exist_ok=True)
+            full = datasets["val"].batch(torch.arange(n_val, device=DEVICE))
+            np.savez(out / "fit_decodability_z.npz", z=z20, **{k: full[k].cpu().numpy() for k in ("avg_speed_3d", "heading", "ids")})
+            raise AssertionError(
+                f"fit: decodability columns: nan folds in {nanfolds}, missing {missing}, not finite {bad}; "
+                f"the epoch-20 mu and labels are in {out / 'fit_decodability_z.npz'}"
+            )
+        card_cpu = decodability_card_vs_cpu(z20, datasets["val"], info["window"])
+        log("fit decodability, card against CPU: " + json.dumps(card_cpu))
         if list(factory.all_saved_epochs(run)) != [5, 10, 15, 20] or sorted(
             p.name for p in (run / "checkpoints").iterdir()
         ) != ["epoch_20.pt"]:
@@ -771,6 +913,10 @@ def fit_phase(card: str) -> dict:
             "steps_per_epoch": trainer.steps_per_epoch, "fit_s": fit_s,
             "train_epoch_ms": epoch_ms, "step_ms": epoch_ms / trainer.steps_per_epoch,
             "val_epoch_ms": timer.mean_ms("val_epoch"), "val_epochs": len(timer.times["val_epoch"]),
+            "decodability_ms_per_val_epoch": timer.mean_ms("decodability"),
+            "decodability_ms_per_val_epoch_by_probe": decod_ms,
+            "decodability_epoch20": {k: float(rows[FIT_EPOCHS - 1][k]) for k in DECOD_COLUMNS},
+            "decodability_card_vs_cpu": card_cpu,
             "save_weights_ms": timer.mean_ms("save_weights"),
             "weights_bytes": (run / "weights" / "epoch_20.pt").stat().st_size,
             "save_train_state_ms": timer.mean_ms("save_train_state"),

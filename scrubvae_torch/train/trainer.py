@@ -2,7 +2,8 @@
 ``scrubvae_tpu/train/trainer.py``): beta annealing, per-epoch re-init of
 the gradient-reversal ensembles, MALS lambda logging, weights every 5
 epochs and the full state every 20, validation losses and generative
-restrictiveness every 5 epochs from ``train.eval_start_epoch``, resume from
+restrictiveness and the cross-validated decodability of the validation mu
+every 5 epochs from ``train.eval_start_epoch``, resume from
 ``model.load_model`` + ``model.start_epoch``, and ``metrics.csv``.
 
 The JAX scanned epoch becomes a Python loop of steps over an index matrix.
@@ -12,9 +13,11 @@ eager step has no program to scan) and ``train.donate`` (steps update
 parameters, moments and statistics in place, so nothing is left to
 donate). ``train.mesh`` must be unset: the port trains on one device.
 
-The cross-validated decodability metrics are not ported yet (ROADMAP.md
-A8): unless ``train.minimal_test`` is true, which skips them as it does in
-the JAX package, constructing a ``Trainer`` raises.
+Decodability (``decodability_metrics``) runs its estimators on the
+trainer's device and draws from no training stream (not the sample-noise
+generator, not the batch-order ``np_rng``), so a run trains bit for bit as
+the same run with ``train.minimal_test: true``, which skips it as it does
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 from scrubvae_torch import factory
 from scrubvae_torch.data.dataset import epoch_batches, epoch_index_matrix
 from scrubvae_torch.device import resolve_device
+from scrubvae_torch.evals import metrics as em
 from scrubvae_torch.evals.restrictiveness import generative_restrictiveness_batch
 from scrubvae_torch.train import optim
 from scrubvae_torch.train.state import TrainState
@@ -52,11 +56,6 @@ class Trainer:
             if ds is not None and ds.device != self.device:
                 raise ValueError(f"a dataset lives on {ds.device}, the trainer on {self.device}")
         self.train_cfg = config["train"]
-        if not self.train_cfg.get("minimal_test"):
-            raise NotImplementedError(
-                "scrubvae_torch has no decodability metrics yet (ROADMAP.md A8, "
-                "evals/metrics.py); set train.minimal_test: true"
-            )
         if self.train_cfg.get("mesh"):
             raise NotImplementedError("scrubvae_torch trains on one device")
         data_cfg = config["data"]
@@ -193,6 +192,50 @@ class Trainer:
             metrics[f"r2_gen_restrict_{key}"] = float(1.0 - ss_res / ss_tot)
         return metrics, torch.cat(zs).cpu().numpy() if zs else np.zeros((0,))
 
+    @staticmethod
+    def _fold_summary(out: Dict[str, float], name: str, folds) -> None:
+        """Mean and std over the valid folds; failed (nan) folds are counted
+        in ``{name}_nanfolds``, present only when a fold failed."""
+        folds = np.asarray(folds, dtype=float)
+        n_nan = int(np.isnan(folds).sum())
+        valid = folds[~np.isnan(folds)]
+        out[f"{name}_mean"] = float(valid.mean()) if valid.size else float("nan")
+        out[f"{name}_std"] = float(valid.std()) if valid.size else float("nan")
+        if n_nan:
+            out[f"{name}_nanfolds"] = float(n_nan)
+
+    def decodability_metrics(self, z_val) -> Dict[str, float]:
+        """5-fold decodability of the validation factors from ``z_val`` (mu
+        of every val sample), on the trainer's device: the linear and MLP
+        R^2 of avg_speed_3d and heading (folds of every ``window``-th
+        sample) and the logistic and QDA accuracy of the ids (every
+        ``decodability_class_window``-th), or of ids and pd_label on the
+        parkinsons data; nothing with ``train.minimal_test``."""
+        out: Dict[str, float] = {}
+        window = self.info["window"]
+        dataset_name = self.config["data"].get("dataset")
+        class_window = em.decodability_class_window(dataset_name, window)
+        if self.train_cfg.get("minimal_test"):
+            return out
+        dev = self.device
+        full = self.val_ds.batch(torch.arange(len(self.val_ds), device=dev))
+        if dataset_name == "parkinsons":
+            for key in ("ids", "pd_label"):
+                y = full[key].long()
+                self._fold_summary(out, f"acc_{key}_log", em.log_class_rand_cv(z_val, y, class_window, 5, device=dev))
+                self._fold_summary(out, f"acc_{key}_qda", em.qda_rand_cv(z_val, y, class_window, 5, device=dev))
+        else:
+            for key in ("avg_speed_3d", "heading"):
+                if key not in full:
+                    continue
+                y = full[key]
+                self._fold_summary(out, f"r2_{key}_lin", em.linear_rand_cv(z_val, y, window, 5, device=dev))
+                self._fold_summary(out, f"r2_{key}_mlp", em.mlp_rand_cv(z_val, y, window, 5, device=dev))
+            y = full["ids"].long()
+            self._fold_summary(out, "acc_ids_log", em.log_class_rand_cv(z_val, y, class_window, 5, device=dev))
+            self._fold_summary(out, "acc_ids_qda", em.qda_rand_cv(z_val, y, class_window, 5, device=dev))
+        return out
+
     @torch.no_grad()
     def reset_gr(self, epoch: int) -> None:
         """Per-epoch re-init of the gradient-reversal ensembles (reference
@@ -236,8 +279,9 @@ class Trainer:
                 if epoch % 20 == 0:
                     ckpt.save_train_state(self.out_path, epoch, self.model, self.state)
                 if epoch >= self.eval_start_epoch and self.eval_step is not None:
-                    test_metrics, _ = self.test_epoch(epoch)
+                    test_metrics, z_val = self.test_epoch(epoch)
                     metrics.update({f"{k}_test": v for k, v in test_metrics.items()})
+                    metrics.update(self.decodability_metrics(z_val))
 
             self.logger.log(metrics, epoch)
         return self.state

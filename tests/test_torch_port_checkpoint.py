@@ -289,11 +289,26 @@ def test_reference_pth_loads_through_the_fallback(tmp_path):
 
 
 def test_decodability_is_not_ported_without_minimal_test(run20):
+    """Decodability is ported: without ``minimal_test`` a ``Trainer``
+    builds and ``decodability_metrics`` returns the JAX package's keys (the
+    val split here is one partial batch, too small to split or of one id,
+    so every fold is nan); with it, nothing."""
     _, _, _, trainer, _ = run20
     cfg = dict(trainer.config)
     cfg["train"] = dict(cfg["train"], minimal_test=None)
-    with pytest.raises(NotImplementedError, match="decodability"):
-        Trainer(cfg, {"train": trainer.train_ds}, fresh_model(trainer), trainer.info, device="cpu")
+    full = Trainer(
+        cfg, {"train": trainer.train_ds, "val": trainer.val_ds}, fresh_model(trainer), trainer.info, device="cpu"
+    )
+    _, z = full.test_epoch(20)
+    with pytest.warns(UserWarning, match="clamping 5 folds"):
+        out = full.decodability_metrics(z)
+    assert [k for k in out if k.endswith("_mean")] == [
+        "r2_avg_speed_3d_lin_mean", "r2_avg_speed_3d_mlp_mean", "r2_heading_lin_mean", "r2_heading_mlp_mean",
+        "acc_ids_log_mean", "acc_ids_qda_mean",
+    ]
+    assert all(np.isnan(out[k]) for k in out if k.endswith("_mean"))
+    assert all(out[k] >= 1 for k in out if k.endswith("_nanfolds"))
+    assert trainer.decodability_metrics(z) == {}
 
 
 def test_train_entry_takes_given_datasets(run20, tmp_path):

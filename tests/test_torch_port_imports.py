@@ -19,7 +19,8 @@ def test_importing_every_module_pulls_in_no_jax():
     mods = [m.name for m in pkgutil.walk_packages(scrubvae_torch.__path__, "scrubvae_torch.")]
     for m in (
         "ops.fused_adamw", "train.trainer", "params.read", "params.param_keys", "evals.restrictiveness",
-        "train_model", "utils.checkpoint", "utils.logging", "data.pose_io",
+        "train_model", "utils.checkpoint", "utils.logging", "data.pose_io", "evals.metrics", "evals.probes",
+        "evals.latents",
     ):
         assert "scrubvae_torch." + m in mods, m
     code = (
@@ -32,6 +33,38 @@ def test_importing_every_module_pulls_in_no_jax():
     res = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_decodability_runs_without_sklearn_or_jax():
+    """The evals and the trainer import, and a small decodability call
+    runs, with sklearn unimportable and without pulling in JAX or the JAX
+    package."""
+    code = (
+        "import sys, types\n"
+        "sys.modules['sklearn'] = None\n"
+        "import numpy as np, torch\n"
+        "import scrubvae_torch.evals.metrics, scrubvae_torch.evals.latents\n"
+        "from scrubvae_torch.train.trainer import Trainer\n"
+        "rng = np.random.default_rng(0)\n"
+        "n = 400\n"
+        "ids = rng.integers(0, 3, n)\n"
+        "z = rng.normal(size=(n, 6)).astype(np.float32) + ids[:, None]\n"
+        "labels = {'avg_speed_3d': torch.from_numpy(z[:, :3] * 2), 'heading': torch.from_numpy(z[:, 3:5]),\n"
+        "          'ids': torch.from_numpy(ids)}\n"
+        "class Val:\n"
+        "    def __len__(self): return n\n"
+        "    def batch(self, idx): return {k: v[idx] for k, v in labels.items()}\n"
+        "me = types.SimpleNamespace(info={'window': 10}, config={'data': {'dataset': 'synthetic'}},\n"
+        "    train_cfg={}, val_ds=Val(), device=torch.device('cpu'), _fold_summary=Trainer._fold_summary)\n"
+        "out = Trainer.decodability_metrics(me, z)\n"
+        "assert len(out) == 12 and all(np.isfinite(v) for v in out.values()), out\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'scrubvae_tpu')\n"
+        "       or (m.startswith('sklearn') and sys.modules[m] is not None)]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
 
 
