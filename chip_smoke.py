@@ -61,6 +61,29 @@ Phases (each one fails the run on error; nothing is caught and swallowed):
    and the estimators against the JAX package's sklearn ones, are covered
    by the tests on the CPU (``tests/test_torch_port_checkpoint.py``,
    ``tests/test_torch_port_fit.py``, ``tests/test_torch_port_decodability.py``).
+8. full: the full scrubber stack of ``configs/ladder/5_full.yaml`` (QDA on
+   ids; linear, MALS, gradient-reversal and adversarial scrubbers on
+   avg_speed_3d; mcmi and total correlation, so the dense Cholesky head).
+   First steps 1 and 2 on the card against the CPU from the seed's weights
+   and states with the same rows, noise and shuffles, at narrow channels, z
+   128, batch 16, f32, without clip: step 1 held to
+   ``scrubvae_torch.train.parity`` (losses, gradients, weights to four ulps,
+   MALS, QDA, the discriminator after its inner fit, MCMI), step 2's losses
+   at rtol 1e-2. Then a copy of the config file (20 epochs, validation at
+   epoch 20 only) through ``params.read.config`` and ``train(config,
+   datasets, model, info)`` at full width on the fit phase's splits: every
+   loss column and ``lambda_qda_ids`` finite at every epoch, the validation
+   losses finite at 20, 2 outer and 5 inner optimizer launches a step; the
+   ``_an``, ``_qda``, ``mcmi`` and ``total_correlation`` columns and
+   ``lambda_qda_ids`` printed at epochs 1, 5, 10 and 20. The discriminator's
+   22-leaf set in one kernel call, bitwise against the plain version, its
+   device time (profiler) and call time beside the bound, the plain
+   version's and ``torch._fused_adamw_``'s. Then, with deterministic
+   algorithms, the run's own epoch 21 against a resume from epoch 20: the
+   restored state and the epoch-21 state bit for bit (model, moments,
+   MALS, QDA, discriminator and MCMI states, generator, batch order).
+   Prints the step time inside ``fit``, the train-epoch, validation-epoch,
+   MCMI-refresh and decodability times and the peak memory.
 
 Prints one JSON line describing the kernels, the card's name and power limit
 again, then, as its last line, the device record. Needs one CUDA GPU and
@@ -88,7 +111,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
 ADAMW_FLOPS_PER_ELEM = 20
 ROOT = pathlib.Path(__file__).resolve().parent
-PHASES = ("kernel", "parity", "path", "fit")
+PHASES = ("kernel", "parity", "path", "fit", "full")
 DEVICE = "cuda"
 
 
@@ -117,6 +140,24 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 50) -> float:
+    """Device time of one call of ``fn``: every kernel it launches, summed
+    over ``iters`` calls by torch.profiler, over ``iters``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    if busy <= 0:
+        raise AssertionError("device_ms: the profiler saw no device time")
+    return busy / 1e3 / iters
 
 
 # ---------------------------------------------------------------------------
@@ -936,18 +977,395 @@ def fit_phase(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the full scrubber stack (configs/ladder/5_full.yaml)
+# ---------------------------------------------------------------------------
+
+FULL_EPOCHS = 20
+FULL_PRINT_EPOCHS = (1, 5, 10, 20)
+FULL_COLUMNS = ("avg_speed_3d_an", "ids_qda", "mcmi", "total_correlation")
+ADV_FEAT = "avg_speed_3d"
+# card against CPU: narrow channels, the flagship's z (QDA's 128-dim
+# systems), f32, no clip (as the CPU tests: a clip factor below 1 makes the
+# step-1 update of a small gradient depend on its value, not only its sign,
+# which the weights' two-ulp bound assumes), and the parity phase's batch
+# of 16: at batch 128 the
+# rotation loss's f32 rounding (see scrubvae_torch/train/parity.py) put the
+# median step-1 gradient difference at 1.008e-2, past its 1e-2 bound
+FULL_PARITY = {"channel": [8, 8, 16, 16, 32], "z_dim": 128, "batch": 16}
+
+
+def _full_config(run: pathlib.Path, num_epochs: int = FULL_EPOCHS, model: dict = None, **train) -> dict:
+    """configs/ladder/5_full.yaml with ``num_epochs`` and validation at
+    epoch 20 only, ``model`` and ``train`` entries overridden, written to
+    ``run/model_config.yaml`` and read back through the port's config
+    reader."""
+    import yaml
+
+    from scrubvae_torch.params import read
+
+    with open(ROOT / "configs" / "ladder" / "5_full.yaml") as f:
+        cfg = yaml.safe_load(f)
+    cfg["train"].update({"num_epochs": num_epochs, "eval_start_epoch": FULL_EPOCHS, **train})
+    cfg["model"].update(model or {})
+    run.mkdir(parents=True)
+    (run / "model_config.yaml").write_text(yaml.safe_dump(cfg))
+    return read.config(run / "model_config.yaml")
+
+
+def _full_parity_run(device: str, rows: np.ndarray, draws: list) -> dict:
+    """Two steps of the full stack at ``FULL_PARITY``'s size from the seed's
+    weights and states, with the given rows, noise and shuffles; the step-1
+    gradients, weights and states, and both steps' losses, on the CPU."""
+    from scrubvae_torch import factory
+    from scrubvae_torch.data.dataset import StreamDataset
+    from scrubvae_torch.data.pipeline import build_frame_store
+    from scrubvae_torch.data.skeleton import load_skeleton
+    from scrubvae_torch.data.synthetic import synthetic_pose_stream
+    from scrubvae_torch.train import parity
+    from scrubvae_torch.train.trainer import Trainer
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_full_parity_"))
+    try:
+        config = _full_config(
+            tmp / "run", model={"channel": FULL_PARITY["channel"], "z_dim": FULL_PARITY["z_dim"], "precision": "fp32"},
+            precision="fp32", moment_dtype="f32", minimal_test=True, clip_norm=0,
+        )
+        config["data"]["batch_size"] = FULL_PARITY["batch"]
+        skel = load_skeleton(ROOT / "configs" / "mouse_skeleton.yaml")
+        pose, ids = synthetic_pose_stream(skel, n_frames=4096, n_ids=4, seed=0)
+        ds = StreamDataset(
+            build_frame_store(pose, ids, skel, window=51, stride=2, device=device), skel, KEYS, "midfwd",
+            arena_size=ARENA, discrete_classes={"ids": np.unique(ids)}, device=device,
+        )
+        model, info = factory.build_model(
+            config["model"], config["disentangle"], 18, "midfwd", arena_size=ARENA,
+            discrete_classes=ds.discrete_classes, loss_keys=config["loss"].keys(), device=device,
+        )
+        trainer = Trainer(config, {"train": ds}, model, info, device=device)
+        names = [n for n, _ in trainer.model.named_parameters()]
+        loss_scale = trainer.loss_scale_for_epoch(26)  # the prior at half its weight
+        out = {"losses": []}
+        for s, (eps, perms) in enumerate(draws):
+            perms = {"loss": perms["loss"].to(device), "fit": {k: [p.to(device) for p in v] for k, v in perms["fit"].items()}}
+            trainer.state, metrics = trainer.train_step(
+                trainer.state, torch.as_tensor(rows[s] % len(ds), device=device), loss_scale,
+                eps=torch.from_numpy(eps).to(device), perms=perms,
+            )
+            out["losses"].append({k: float(v) for k, v in metrics.items()})
+            if s == 0:
+                # copies: step 2 updates the parameters and moments in place
+                st = trainer.state
+
+                def cpu(t):
+                    return t.detach().to("cpu", copy=True)
+
+                out["grads"] = {n: cpu(m) / (1.0 - trainer.tx.b1) for n, m in zip(names, st.opt_state.mu)}
+                out["w1"] = {n: cpu(p) for n, p in trainer.model.named_parameters()}
+                out["mals"] = {k: cpu(getattr(st.scrub_state["moving_avg_lsq"][ADV_FEAT], k)) for k in parity.MALS_KEYS}
+                out["qda"] = {k: cpu(getattr(st.scrub_state["qda"]["ids"], k)) for k in parity.QDA_KEYS}
+                out["adv"] = {k: cpu(v) for k, v in st.adv_states[ADV_FEAT].net.state_dict().items()}
+                out["mi"] = {k: cpu(getattr(st.mi_state, k)) for k in parity.MI_KEYS}
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def full_parity() -> dict:
+    """The full stack's steps 1 and 2 on the card against the CPU: step 1
+    held to ``scrubvae_torch.train.parity`` (losses 1e-4, gradients, weights
+    to four ulps, MALS and QDA 1e-4, the discriminator 1e-3, MCMI 1e-2),
+    step 2's losses, where QDA's and MCMI's are no longer 0, at rtol 1e-2.
+    The card runs with deterministic algorithms."""
+    from scrubvae_torch.train import parity
+
+    B, Z = FULL_PARITY["batch"], FULL_PARITY["z_dim"]
+    rng = np.random.default_rng(5)
+    gen = torch.Generator().manual_seed(5)
+    rows = rng.integers(0, 1 << 20, (2, B))  # modulo the dataset's length
+    draws = [
+        (
+            rng.standard_normal((B, Z)).astype(np.float32),
+            {"loss": torch.randperm(B, generator=gen), "fit": {ADV_FEAT: [torch.randperm(B, generator=gen) for _ in range(5)]}},
+        )
+        for _ in range(2)
+    ]
+    cpu = _full_parity_run("cpu", rows, draws)
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True)
+    try:
+        card = _full_parity_run(DEVICE, rows, draws)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    want0 = {k: v for k, v in cpu["losses"][0].items() if k != "mcmi"}
+    got0 = {k: v for k, v in card["losses"][0].items() if k != "mcmi"}
+    if cpu["losses"][0]["mcmi"] != 0.0 or card["losses"][0]["mcmi"] != 0.0:
+        raise AssertionError("full: the mcmi loss is not 0 before the estimator's first refresh")
+    checks = {
+        "max_loss_rel_step1": lambda: parity.check_losses(want0, got0, 1e-4),
+        "grads": lambda: parity.check_grads(cpu["grads"], card["grads"]),
+        "weights": lambda: parity.check_weights(cpu["w1"], card["w1"], cpu["grads"], ulps=4),
+        "max_mals_rel": lambda: parity.check_mals(cpu["mals"], card["mals"], 1e-4),
+        "max_qda_rel": lambda: parity.check_qda(cpu["qda"], card["qda"], 1e-4),
+        "adv": lambda: parity.check_adv(cpu["adv"], card["adv"], 1e-3),
+        "max_mi_rel": lambda: parity.check_mi(cpu["mi"], card["mi"], 1e-2),
+        "max_loss_rel_step2": lambda: parity.check_losses(cpu["losses"][1], card["losses"][1], 1e-2),
+    }
+    rec = {"batch": B, "z_dim": Z, "channels": FULL_PARITY["channel"]}
+    failed = {}
+    for name, check in checks.items():
+        # every check runs, so one call shows all that differs; any failure
+        # fails the phase below
+        try:
+            got = check()
+        except AssertionError as e:
+            failed[name] = str(e)
+            continue
+        rec.update(got if isinstance(got, dict) else {name: got})
+    rec["step2_losses_card"] = {k: card["losses"][1][k] for k in ("ids_qda", "mcmi", "avg_speed_3d_an", "total_correlation")}
+    if failed:
+        raise AssertionError(f"full: card against CPU: {json.dumps(failed)}; readings {json.dumps(rec)}")
+    log("full card against CPU, steps 1 and 2: " + json.dumps(rec))
+    return rec
+
+
+def inner_adamw_check(adv_state) -> dict:
+    """The discriminator's leaf set (its shapes, random values, f32 with f32
+    moments) in one call of the kernel, bitwise against the plain version;
+    the call's time beside its bound, the plain version's and
+    ``torch._fused_adamw_``'s over the same leaves."""
+    from scrubvae_torch.ops import fused_adamw as fa
+
+    params = list(adv_state.net.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def randn(p, scale):
+        return torch.randn(p.shape, generator=gen, device="cuda") * scale
+
+    ws = [randn(p, 0.1) for p in params]
+    gs = [randn(p, 1e-2) for p in params]
+    mus = [randn(p, 1e-3) for p in params]
+    nus = [randn(p, 1e-2) ** 2 for p in params]
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-8, wd=1e-4)
+    t = 3
+    scal = torch.tensor([0.1, 1.0 - 0.9**t, 1.0 - 0.999**t, 1.0], dtype=torch.float32, device="cuda")
+    lr, b1c, b2c, gscale = scal.unbind(0)
+    table = fa.LeafTable([w.clone() for w in ws], [m.clone() for m in mus], [v.clone() for v in nus])
+    fa.fused_adamw_multi(table, gs, scal, step=t, **hyper)
+    refs = fa.fused_adamw_multi_reference(ws, gs, mus, nus, lr=lr, b1c=b1c, b2c=b2c, gscale=gscale, step=t, **hyper)
+    torch.cuda.synchronize()
+    err = 0.0
+    for i, ref in enumerate(refs):
+        err = max(err, _assert_bits(f"discriminator leaf {i} {tuple(ws[i].shape)}", (table.w[i], table.mu[i], table.nu[i]), ref))
+    n = sum(table.numel)
+    bytes_moved = fa.leaf_bytes([w.shape for w in ws], 4, 4)
+    lib = [[x.clone() for x in xs] for xs in (ws, gs, mus, nus)]
+    steps = [torch.tensor(float(t), device="cuda") for _ in ws]
+    calls = {
+        "kernel": lambda: fa.fused_adamw_multi(table, gs, scal, step=t, **hyper),
+        "plain": lambda: fa.fused_adamw_multi_reference(
+            ws, gs, mus, nus, lr=lr, b1c=b1c, b2c=b2c, gscale=gscale, step=t, **hyper
+        ),
+        "library": lambda: torch._fused_adamw_(
+            *lib, [], steps, lr=0.1, beta1=0.9, beta2=0.999, weight_decay=1e-4,
+            eps=1e-8, amsgrad=False, maximize=False,
+        ),
+    }
+    rec = {
+        "leaves": len(ws), "elements": n, "launches_per_call": len(table.batches), "bitwise": True,
+        "max_abs_err": err, "bytes": bytes_moved,
+    }
+    # a call this small is set by the host: its device time (profiler) is
+    # what the kernel costs, its time between events what a caller waits
+    for name, fn in calls.items():
+        rec[f"{name}_ms"] = device_ms(fn)
+        rec[f"{name}_call_ms"] = cuda_ms(fn, iters=50)
+    rec["bound_ms"], rec["bound_by"] = _bound(bytes_moved, n)
+    log("kernel fused_adamw discriminator leaf set: " + json.dumps(rec))
+    return rec
+
+
+def _full_state(trainer) -> dict:
+    """``_trainer_state`` plus the QDA state, the discriminator's parameters,
+    moments and counts, the MCMI state and the batch-order generator."""
+    from scrubvae_torch.train import parity
+
+    st = trainer.state
+    adv = st.adv_states[ADV_FEAT]
+    out = _trainer_state(trainer)
+    out.update(
+        qda=[getattr(st.scrub_state["qda"]["ids"], f).clone() for f in parity.QDA_KEYS],
+        adv=[p.detach().clone() for p in adv.net.parameters()] + [m.clone() for m in adv.opt_state.mu + adv.opt_state.nu],
+        mi=[getattr(st.mi_state, f).clone() for f in parity.MI_KEYS],
+        adv_counts=(adv.opt_state.count.clone(), adv.opt_state.step),
+        np_rng=repr(trainer.np_rng.bit_generator.state),
+    )
+    return out
+
+
+def _same_full_state(a: dict, b: dict) -> list:
+    bad = _same_state(a, b)
+    bad += [
+        part for part in ("qda", "adv", "mi")
+        if len(a[part]) != len(b[part]) or not all(bits_equal(x, y) for x, y in zip(a[part], b[part]))
+    ]
+    if not torch.equal(a["adv_counts"][0], b["adv_counts"][0]) or a["adv_counts"][1] != b["adv_counts"][1]:
+        bad.append("adv_counts")
+    if a["np_rng"] != b["np_rng"]:
+        bad.append("np_rng")
+    return bad
+
+
+def full_phase(card: str) -> dict:
+    """``configs/ladder/5_full.yaml`` at its full width through
+    ``train(config, datasets, model, info)`` for 20 epochs on the fit
+    phase's splits, one validation epoch at 20 (MCMI refresh, decodability);
+    then a resume from epoch 20 against the run's own epoch 21 (see the
+    module docstring)."""
+    import csv
+
+    from scrubvae_torch import factory
+    from scrubvae_torch.ops import fused_adamw as fa
+    from scrubvae_torch.train import trainer as trainer_mod
+
+    parity_rec = full_parity()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_full_"))
+    timer = _Timer()
+    try:
+        datasets = _fit_splits()
+        run = tmp / "run"
+        config = _full_config(run)
+
+        def build():
+            return factory.build_model(
+                config["model"], config["disentangle"], n_keypts=18, direction_process="midfwd",
+                arena_size=ARENA, discrete_classes=datasets["train"].discrete_classes,
+                loss_keys=config["loss"].keys(), device=DEVICE,
+            )
+
+        model, info = build()
+        if model.vae.packed_sigma:
+            raise AssertionError("full: total_correlation needs the dense Cholesky head")
+        for owner, name, label in (
+            (trainer_mod.Trainer, "train_epoch", "train_epoch"),
+            (trainer_mod.Trainer, "test_epoch", "val_epoch"),
+            (trainer_mod.Trainer, "_refresh_eval_mi", "mi_refresh"),
+            (trainer_mod.Trainer, "decodability_metrics", "decodability"),
+        ):
+            timer.wrap(owner, name, label)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.fused_adamw_multi.launches = 0
+        fa.fused_adamw_leaf.launches = 0
+        t0 = time.perf_counter()
+        trainer = trainer_mod.train(config, datasets, model, info, device=DEVICE)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = fa.fused_adamw_multi.launches + fa.fused_adamw_leaf.launches
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        at20 = _full_state(trainer)
+
+        steps = trainer.steps_per_epoch * FULL_EPOCHS
+        outer = trainer.state.opt_state.table
+        adv = trainer.state.adv_states[ADV_FEAT]
+        n_iter = int(config["disentangle"]["n_iter"])
+        per_step = len(outer.batches) + n_iter * len(adv.opt_state.table.batches)
+        n_params = len(list(trainer.model.parameters()))
+        if (len(outer.w), len(adv.opt_state.table.w), len(adv.opt_state.table.batches)) != (n_params, 22, 1):
+            raise AssertionError(
+                f"full: outer table of {len(outer.w)} leaves for {n_params} parameters, discriminator "
+                f"table of {len(adv.opt_state.table.w)} leaves in {len(adv.opt_state.table.batches)} launches"
+            )
+        if launches != per_step * steps or adv.opt_state.step != n_iter * steps:
+            raise AssertionError(f"full: {launches} kernel launches in {steps} steps; expected {per_step} a step")
+
+        with open(run / "metrics.csv", newline="") as f:
+            rows = list(csv.DictReader(f))
+        if [int(r["epoch"]) for r in rows] != list(range(1, FULL_EPOCHS + 1)):
+            raise AssertionError(f"full: metrics.csv epochs {[r['epoch'] for r in rows]}")
+        loss_cols = [k for k in rows[0] if k.endswith("_train")]
+        missing = [f"{c}_{s}" for c in FULL_COLUMNS for s in ("train", "test") if f"{c}_{s}" not in rows[0]]
+        bad = [
+            (r["epoch"], k, r[k]) for r in rows for k in loss_cols + ["lambda_qda_ids"]
+            if not math.isfinite(float(r[k]))
+        ]
+        bad += [(20, k, rows[-1][k]) for k in rows[-1] if k.endswith("_test") and not math.isfinite(float(rows[-1][k]))]
+        if missing or bad:
+            raise AssertionError(f"full: metrics.csv columns missing {missing}, not finite {bad}")
+        lam = [float(r["lambda_qda_ids"]) for r in rows]
+        printed = {
+            r["epoch"]: {k: float(r[k]) for k in ["lambda_qda_ids", "total_train"] + [f"{c}_train" for c in FULL_COLUMNS]}
+            for r in rows if int(r["epoch"]) in FULL_PRINT_EPOCHS
+        }
+        printed["20"].update({f"{c}_test": float(rows[-1][f"{c}_test"]) for c in FULL_COLUMNS})
+        log("full metrics.csv at epochs 1, 5, 10, 20: " + json.dumps(printed))
+        epoch_ms = timer.mean_ms("train_epoch")
+        rec = {
+            "card": card, "epochs": FULL_EPOCHS, "batch": int(config["data"]["batch_size"]),
+            "z_dim": int(config["model"]["z_dim"]), "channels": config["model"]["channel"],
+            "steps_per_epoch": trainer.steps_per_epoch, "fit_s": fit_s,
+            "train_epoch_ms": epoch_ms, "step_ms": epoch_ms / trainer.steps_per_epoch,
+            "val_epoch_ms": timer.mean_ms("val_epoch"), "val_epochs": len(timer.times["val_epoch"]),
+            "mi_refresh_ms": timer.mean_ms("mi_refresh"),
+            "decodability_ms": timer.mean_ms("decodability"),
+            "peak_mem_gib": peak_gib, "kernel_launches": launches, "launches_per_step": launches / steps,
+            "inner_launches_per_step": n_iter * len(adv.opt_state.table.batches),
+            "lambda_qda_ids_first_last": [lam[0], lam[-1]],
+            "first_total_train": float(rows[0]["total_train"]), "last_total_train": float(rows[-1]["total_train"]),
+        }
+        timer.undo()
+        inner = inner_adamw_check(adv)
+
+        # epoch 21 of the run itself, then a resume from epoch 20, both with
+        # deterministic algorithms
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True)
+        try:
+            trainer.start_epoch = FULL_EPOCHS
+            trainer.fit(FULL_EPOCHS + 1)
+            at21 = _full_state(trainer)
+            del trainer
+            resume_cfg = _full_config(
+                tmp / "resume", num_epochs=FULL_EPOCHS + 1,
+                model={"load_model": str(run), "start_epoch": FULL_EPOCHS},
+            )
+            model, info = build()
+            resumed = trainer_mod.Trainer(resume_cfg, datasets, model, info, device=DEVICE)
+            bad = _same_full_state(_full_state(resumed), at20)
+            if bad:
+                raise AssertionError(f"full: the state restored at epoch {FULL_EPOCHS} differs in {bad}")
+            resumed.fit()
+            bad = _same_full_state(_full_state(resumed), at21)
+            if bad:
+                raise AssertionError(f"full: epoch {FULL_EPOCHS + 1} after the resume differs in {bad}")
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = False
+
+        rec.update(resume_bitwise_equal=True, card_vs_cpu=parity_rec, inner_adamw=inner)
+        log("full scrubber stack train entry point: " + json.dumps(rec))
+        return rec
+    finally:
+        timer.undo()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
 
-def kernels_line(kernel: dict, path: dict, fit: dict) -> dict:
+def kernels_line(kernel: dict, path: dict, fit: dict, full: dict) -> dict:
     """One record per kernel of the main path: its launches on the path run
     and, at the fc_sigma shape, its time beside the plain version's, the
     bound and the library call's, for the f32 variant (where
     ``torch._fused_adamw_`` computes the same function) and for every
     variant; the Philox against the injected-noise time of the bf16
     variant; and the whole flagship pass (every leaf, one launch per
-    variant) beside its bound and ``torch._fused_adamw_`` over f32 copies."""
+    variant) beside its bound and ``torch._fused_adamw_`` over f32 copies;
+    and the full phase's launches, with the discriminator's inner pass (the
+    f32 variant over its 22 leaves) beside its bound, the plain version's
+    and ``torch._fused_adamw_``'s time."""
     f32 = kernel["timings"]["w f32, m f32"]
     bf16 = kernel["timings"]["w bf16, m bf16"]
     leaf_set = kernel["leaf_set"]
@@ -979,6 +1397,16 @@ def kernels_line(kernel: dict, path: dict, fit: dict) -> dict:
         "launches_per_step": path["launches_per_step"],
         "fit_launches": None if fit is None else fit["optimizer_launches"],
         "fit_launches_per_step": None if fit is None else fit["launches_per_step"],
+        "full_launches": None if full is None else full["kernel_launches"],
+        "full_launches_per_step": None if full is None else full["launches_per_step"],
+        "full_inner_launches_per_step": None if full is None else full["inner_launches_per_step"],
+        "inner_pass": None if full is None else {
+            k: full["inner_adamw"][k]
+            for k in (
+                "leaves", "elements", "kernel_ms", "kernel_call_ms", "plain_ms", "plain_call_ms", "bound_ms",
+                "bound_by", "library_ms", "library_call_ms", "max_abs_err",
+            )
+        },
     }]}
 
 
@@ -1028,8 +1456,10 @@ def main() -> int:
     flagship = None  # frees the path phase's trainer before the fit phase
     torch.cuda.empty_cache()
     fit = fit_phase(smi[0] if smi else "nvidia-smi: no output") if "fit" in phases else None
+    torch.cuda.empty_cache()
+    full = full_phase(smi[0] if smi else "nvidia-smi: no output") if "full" in phases else None
     if kernel is not None and path is not None:
-        log(json.dumps(kernels_line(kernel, path, fit)))
+        log(json.dumps(kernels_line(kernel, path, fit, full)))
     log(smi[0] if smi else "nvidia-smi: no output")
     print(json.dumps({
         "ok": True,

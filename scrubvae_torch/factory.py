@@ -1,9 +1,10 @@
 """Configs -> data, model and scrubber state (counterpart of ``feat_dims``,
 ``in_channels_for``, ``build_model``, ``init_scrub_state``,
 ``_discrete_classes_for``, ``mouse_data``, ``data_and_model`` and
-``all_saved_epochs`` in ``scrubvae_tpu/factory.py``; ``rcnn`` only, and
-raw pose files only: the preprocessed per-key layout, host streaming and
-the parkinsons recoding raise ``NotImplementedError``)."""
+``all_saved_epochs`` in ``scrubvae_tpu/factory.py``, and the adversarial
+bundle of its ``init_scrub_state``; ``rcnn`` only, and raw pose files only:
+the preprocessed per-key layout, host streaming and the parkinsons recoding
+raise ``NotImplementedError``)."""
 
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ __all__ = [
     "build_model",
     "init_weights",
     "init_scrub_state",
+    "init_adv_bundle",
     "mouse_data",
     "data_and_model",
     "all_saved_epochs",
@@ -79,15 +81,23 @@ def build_model(
     loss_keys=None,
     device="cuda",
 ) -> tuple:
-    """Construct the ScrubVAE on ``device``. Returns (model, info)."""
+    """Construct the ScrubVAE on ``device``. Returns (model, info).
+
+    The Cholesky head is packed unless a loss needs the dense (B, z, z)
+    factor: with ``model.packed_sigma`` unset it is packed when the loss
+    keys are known, exclude ``total_correlation`` and the prior is gaussian;
+    an explicit ``model.packed_sigma`` wins."""
     dev = resolve_device(device)
     mtype = model_config.get("type") or "rcnn"
     if mtype != "rcnn":
         raise NotImplementedError(f"scrubvae_torch builds the rcnn model only (got {mtype!r})")
-    if loss_keys is not None and "total_correlation" in set(loss_keys):
-        raise NotImplementedError("scrubvae_torch has no total_correlation loss yet")
-    if model_config.get("packed_sigma") is False:
-        raise NotImplementedError("scrubvae_torch implements the packed Cholesky head only")
+    packed = model_config.get("packed_sigma")
+    if packed is None:
+        packed = (
+            loss_keys is not None
+            and "total_correlation" not in set(loss_keys)
+            and (model_config.get("prior") or "gaussian") == "gaussian"
+        )
     methods = disentangle_config.get("method") or {}
     fdims = feat_dims(model_config, discrete_classes)
     conditional_keys = list(methods.get("conditional", []))
@@ -116,6 +126,7 @@ def build_model(
         discrete_classes={k: len(v) for k, v in (discrete_classes or {}).items()} or None,
         precision=model_config.get("precision") or "fp32",
         sigma_head_rank=model_config.get("sigma_head_rank"),
+        packed_sigma=bool(packed),
     )
     model = ScrubVAE(
         vae,
@@ -166,9 +177,15 @@ def init_weights(model: nn.Module, seed: int) -> None:
 
 
 def init_scrub_state(
-    disentangle_config: dict, loss_config: dict, z_dim: int, fdims: dict, device="cuda"
+    disentangle_config: dict,
+    loss_config: dict,
+    z_dim: int,
+    fdims: dict,
+    device="cuda",
+    discrete_classes: Optional[dict] = None,
 ) -> Dict[str, Dict]:
-    """Streaming scrubber states per feature (MALS only in this port)."""
+    """Streaming scrubber states per feature: MALS, and QDA over
+    ``discrete_classes[feat]``."""
     dev = resolve_device(device)
     methods = disentangle_config.get("method") or {}
     scrub_state: Dict[str, Dict] = {}
@@ -184,7 +201,40 @@ def init_scrub_state(
             )
             for feat in methods["moving_avg_lsq"]
         }
+    if "qda" in methods:
+        scrub_state["qda"] = {
+            feat: scr.qda_init(z_dim, np.asarray(discrete_classes[feat]), device=dev)
+            for feat in methods["qda"]
+        }
     return scrub_state
+
+
+# the discriminators draw their init from seeds of their own
+ADV_SEED_OFFSET = 1 << 20
+
+
+def init_adv_bundle(disentangle_config: dict, z_dim: int, fdims: dict, seed: int, device="cuda") -> Optional[dict]:
+    """The adversarial discriminators, one ``AdvNet`` over (z, conditionals)
+    per ``adversarial_net`` feature, initialised as ``init_weights`` does
+    from seed ``seed + ADV_SEED_OFFSET + i`` for the i-th feature, and their
+    AdamW: ``FusedAdamW`` at lr 0.1, weight decay 1e-4, f32 moments (optax's
+    ``adamw(0.1)`` in the JAX package), with a state, and so a leaf table,
+    per net. Returns ``{"tx", "states"}``, or None without such a feature."""
+    from scrubvae_torch.train.optim import FusedAdamW
+
+    methods = disentangle_config.get("method") or {}
+    if "adversarial_net" not in methods:
+        return None
+    dev = resolve_device(device)
+    conditional_dim = sum(fdims[k] for k in methods.get("conditional", []))
+    tx = FusedAdamW(0.1, weight_decay=1e-4, moment_dtype=torch.float32)
+    states = {}
+    for i, feat in enumerate(methods["adversarial_net"]):
+        net = scr.AdvNet(z_dim + conditional_dim)
+        init_weights(net, seed + ADV_SEED_OFFSET + i)
+        net.to(dev)
+        states[feat] = scr.AdvState(net=net, opt_state=tx.init(list(net.parameters())))
+    return {"tx": tx, "states": states}
 
 
 def _discrete_classes_for(ids: np.ndarray, dataset_name: str) -> dict:

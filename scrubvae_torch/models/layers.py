@@ -38,6 +38,8 @@ __all__ = [
     "packed_diag",
     "packed_matvec",
     "packed_sumsq",
+    "packed_to_L",
+    "CholeskyL",
     "ResidualBlock",
     "ResidualBlockTranspose",
     "lecun_normal_",
@@ -206,7 +208,8 @@ class UpsampleLinear(nn.Module):
 # Packed lower-triangular Cholesky factor: row-major packed tril, entry k at
 # (row_k, col_k), the order the dense CholeskyL scatters. Everything the
 # train losses need from L (L @ eps, diag(L), trace(LL^T)) works on the
-# packed vector; the (B, D, D) matrix is never built.
+# packed vector; the (B, D, D) matrix is built (``packed_to_L``) only for
+# the dense head, which total correlation needs.
 # ---------------------------------------------------------------------------
 
 
@@ -260,6 +263,32 @@ def packed_matvec(xp: torch.Tensor, v: torch.Tensor, D: int, diag_only: Optional
     rows, cols, _ = _tril_tensors(D, False, xp.device)
     prod = f32_or_wider(xp * v[:, cols])
     return prod.new_zeros(xp.shape[0], D).index_add(1, rows, prod)
+
+
+def packed_to_L(xp: torch.Tensor, D: int, diag_only: Optional[bool] = None) -> torch.Tensor:
+    """The (B, D, D) factor from a packed vector (already softplus'd): entry
+    k to (row_k, col_k), zeros above the diagonal."""
+    B = xp.shape[0]
+    if _diag_only(xp, D, diag_only):
+        return torch.diag_embed(xp)
+    rows, cols, _ = _tril_tensors(D, False, xp.device)
+    return xp.new_zeros(B, D * D).index_copy(1, rows * D + cols, xp).view(B, D, D)
+
+
+class CholeskyL(nn.Module):
+    """A flat head output onto a lower-triangular Cholesky factor (B, D, D):
+    the tril filled row-major, the diagonal softplus'd with a 1e-6 floor
+    (softplus underflows to 0 below -103, and the KL and total-correlation
+    losses take log(diag)); with ``is_diag`` the output is the diagonal
+    alone. No parameters: ``fc_sigma`` before it is the same layer, in the
+    same packed order, as in the packed head."""
+
+    def __init__(self, z_dim: int, is_diag: bool):
+        super().__init__()
+        self.z_dim, self.is_diag = z_dim, is_diag
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return packed_to_L(packed_softplus_diag(x, self.z_dim, self.is_diag), self.z_dim, self.is_diag)
 
 
 class ResidualBlock(nn.Module):

@@ -1,5 +1,7 @@
 """Residual convolutional VAE, the flagship model (counterpart of
-``scrubvae_tpu/models/residual.py``, ``rcnn`` with the packed Cholesky head).
+``scrubvae_tpu/models/residual.py``, ``rcnn`` with the gaussian prior and
+either Cholesky head: packed, ``Lp`` (B, D(D+1)/2), or dense, ``L``
+(B, D, D), which total correlation needs).
 
 Public methods take and return the JAX package's layout: batches are dicts
 of (B, W, J, 6) ``x6d`` and (B, W, 3) ``root``. Inside, the stack is NCW and
@@ -16,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from scrubvae_torch.models.layers import (
+    CholeskyL,
     Conv1d,
     ConvTranspose1d,
     Linear,
@@ -47,6 +50,7 @@ class ResidualEncoder(nn.Module):
         is_diag: bool = False,
         init_dilation: Optional[int] = None,
         compute_dtype: Optional[torch.dtype] = None,
+        packed_sigma: bool = True,
     ):
         super().__init__()
         n = len(ch) - 1
@@ -65,9 +69,12 @@ class ResidualEncoder(nn.Module):
         sig_dim = z_dim if is_diag else z_dim * (z_dim + 1) // 2
         self.fc_mu = Linear(flat, z_dim, compute_dtype=dt)
         self.fc_sigma = nn.Sequential(Linear(flat, sig_dim, compute_dtype=dt))
+        self.packed_sigma = packed_sigma
+        self.cholesky = None if packed_sigma else CholeskyL(z_dim, is_diag)
 
     def forward(self, x: torch.Tensor, mu_only: bool = False):
-        """x: (B, W, C) -> (mu (B, z), packed L (B, K) or None), both f32."""
+        """x: (B, W, C) -> (mu (B, z), L or None), both f32: L packed (B, K)
+        or dense (B, z, z)."""
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
         h = self.activation(self.conv_in(x.transpose(1, 2)))
@@ -76,6 +83,8 @@ class ResidualEncoder(nn.Module):
         if mu_only:
             return mu, None
         sig = f32_or_wider(self.fc_sigma(h))
+        if self.cholesky is not None:
+            return mu, self.cholesky(sig)
         return mu, packed_softplus_diag(sig, self.z_dim, self.is_diag)
 
 
@@ -120,7 +129,8 @@ class ResidualDecoder(nn.Module):
 
 class ResVAE(nn.Module):
     """Encoder/decoder with arena root normalisation and conditional
-    decoding; the packed Cholesky head (``packed_sigma``) only."""
+    decoding; the packed Cholesky head with ``packed_sigma``, else the
+    dense one."""
 
     def __init__(
         self,
@@ -142,18 +152,20 @@ class ResVAE(nn.Module):
         packed_sigma: bool = True,
     ):
         super().__init__()
-        if prior != "gaussian" or not packed_sigma or sigma_head_rank:
+        if prior != "gaussian" or sigma_head_rank:
             raise NotImplementedError(
-                "scrubvae_torch ResVAE supports the gaussian prior with the packed "
-                "dense Cholesky head only"
+                "scrubvae_torch ResVAE supports the gaussian prior with a full-rank "
+                "Cholesky head only (ROADMAP.md A8)"
             )
         self.z_dim, self.window, self.is_diag = z_dim, window, is_diag
+        self.packed_sigma = packed_sigma
         self.conditional_dim = conditional_dim
         self.conditional_keys = tuple(conditional_keys)
         self.discrete_classes = dict(discrete_classes or {})
         dt = torch.bfloat16 if precision == "bf16" else None
         self.encoder = ResidualEncoder(
-            in_channels, ch, kernel, z_dim, window, activation, is_diag, init_dilation, dt
+            in_channels, ch, kernel, z_dim, window, activation, is_diag, init_dilation, dt,
+            packed_sigma,
         )
         self.decoder = ResidualDecoder(
             in_channels, ch, kernel, z_dim, window, activation, conditional_dim, dt
@@ -171,8 +183,15 @@ class ResVAE(nn.Module):
         if self.arena is not None:
             norm_root = normalize_root(data["root"], self.arena.to(x6d.dtype))
             x_in = torch.cat([x_in, norm_root], dim=-1)
-        mu, Lp = self.encoder(x_in, mu_only=mu_only)
-        return {"mu": mu} if Lp is None else {"mu": mu, "Lp": Lp}
+        mu, L = self.encoder(x_in, mu_only=mu_only)
+        if L is None:
+            return {"mu": mu}
+        return {"mu": mu, self.sigma_key: L}
+
+    @property
+    def sigma_key(self) -> str:
+        """The key of the Cholesky factor in ``encode``'s output."""
+        return "Lp" if self.packed_sigma else "L"
 
     def build_conditionals(self, data: Dict[str, torch.Tensor]) -> Optional[torch.Tensor]:
         """One-hot discrete + continuous conditionals, concatenated."""
@@ -207,9 +226,12 @@ class ResVAE(nn.Module):
         out["x6d"] = x6d.reshape(B, self.window, -1, 6)
         return out
 
-    def sample_z(self, mu: torch.Tensor, Lp: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+    def sample_z(self, mu: torch.Tensor, L: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
         """mu + L @ eps for standard-normal ``eps`` of mu's shape."""
-        return mu + packed_matvec(Lp, eps.to(mu.dtype), self.z_dim, self.is_diag)
+        eps = eps.to(mu.dtype)
+        if self.packed_sigma:
+            return mu + packed_matvec(L, eps, self.z_dim, self.is_diag)
+        return mu + torch.einsum("bij,bj->bi", L, eps)
 
     def forward(
         self,
@@ -220,7 +242,7 @@ class ResVAE(nn.Module):
         """z = mu + L eps in training mode when ``eps`` is given, else mu."""
         out = self.encode(data, mu_only=mu_only)
         if self.training and eps is not None and not mu_only:
-            z = self.sample_z(out["mu"], out["Lp"], eps)
+            z = self.sample_z(out["mu"], out[self.sigma_key], eps)
         else:
             z = out["mu"]
         out["z"] = z

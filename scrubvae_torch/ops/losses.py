@@ -1,9 +1,11 @@
-"""Primitive losses of the flagship train step (counterpart of the
-``stable_rotation_loss`` / ``prior_loss_packed`` / ``mpjpe_loss`` /
-``mse_sum`` part of ``scrubvae_tpu/ops/losses.py``)."""
+"""Primitive losses of the train step (counterpart of the
+``stable_rotation_loss`` / ``prior_loss`` / ``prior_loss_packed`` /
+``mpjpe_loss`` / ``mse_sum`` / ``total_correlation`` part of
+``scrubvae_tpu/ops/losses.py``)."""
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -11,7 +13,16 @@ import torch
 from scrubvae_torch.ops.kinematics import KinematicTree, fwd_kin_cont6d
 from scrubvae_torch.ops.rotation import rotation_6d_to_matrix
 
-__all__ = ["mse_sum", "stable_rotation_loss", "prior_loss_packed", "mpjpe_loss"]
+__all__ = [
+    "mse_sum",
+    "stable_rotation_loss",
+    "prior_loss",
+    "prior_loss_packed",
+    "mpjpe_loss",
+    "total_correlation",
+]
+
+LN2PI = math.log(2.0 * math.pi)
 
 
 def mse_sum(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -28,6 +39,15 @@ def stable_rotation_loss(x: torch.Tensor, x_hat: torch.Tensor, eps: float = 1e-7
     sin = torch.sqrt(torch.sum(diff * diff, dim=(-1, -2)) + 1e-14) / (2.0**1.5)
     sin = torch.clamp(sin, -1.0 + eps, 1.0 - eps)
     return 2.0 * torch.sum(torch.asin(sin))
+
+
+def prior_loss(mu: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
+    """KL(N(mu, LL^T) || N(0, I)) for the dense Cholesky factor L (B, D, D),
+    averaged over the batch."""
+    var_diag = torch.sum(L * L, dim=-1)  # diag(L L^T)
+    log_diag_L = torch.log(torch.diagonal(L, dim1=-2, dim2=-1))
+    kl = -0.5 * torch.sum(1.0 + 2.0 * log_diag_L - mu**2 - var_diag)
+    return kl / mu.shape[0]
 
 
 def prior_loss_packed(mu: torch.Tensor, Lp: torch.Tensor, diag_only: bool = False) -> torch.Tensor:
@@ -66,3 +86,20 @@ def mpjpe_loss(
         eps=1e-8,
     ).reshape(target_pose.shape)
     return torch.sum((target_pose - pose_hat) ** 2) / (B * 3 * J)
+
+
+def _gaussian_log_density_unsummed(z: torch.Tensor, mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
+    diff_sq = (z - mu) ** 2
+    inv_var = torch.exp(-logvar)
+    return -0.5 * (inv_var * diff_sq + logvar + LN2PI)
+
+
+def total_correlation(z: torch.Tensor, mu: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
+    """The beta-TCVAE minibatch estimator of the total correlation of q(z),
+    from the (B, B, D) log-densities of every sample under every posterior;
+    ``z`` is detached, as in the reference."""
+    logvar = torch.log(torch.sum(L * L, dim=-1))
+    log_qz_prob = _gaussian_log_density_unsummed(z.detach()[:, None], mu[None, :], logvar[None, :])
+    log_qz_product = torch.sum(torch.logsumexp(log_qz_prob, dim=1), dim=1)
+    log_qz = torch.logsumexp(torch.sum(log_qz_prob, dim=2), dim=1)
+    return torch.mean(log_qz - log_qz_product)

@@ -1,9 +1,11 @@
 """Training orchestration (counterpart of ``Trainer`` and ``train`` of
 ``scrubvae_tpu/train/trainer.py``): beta annealing, per-epoch re-init of
-the gradient-reversal ensembles, MALS lambda logging, weights every 5
-epochs and the full state every 20, validation losses and generative
-restrictiveness and the cross-validated decodability of the validation mu
-every 5 epochs from ``train.eval_start_epoch``, resume from
+the gradient-reversal ensembles, MALS and QDA lambda logging, the
+adversarial discriminators and the MCMI estimator carried in the train
+state, weights every 5 epochs and the full state every 20, validation
+losses (after the MCMI estimator is rebuilt from the validation split) and
+generative restrictiveness and the cross-validated decodability of the
+validation mu every 5 epochs from ``train.eval_start_epoch``, resume from
 ``model.load_model`` + ``model.start_epoch``, and ``metrics.csv``.
 
 The JAX scanned epoch becomes a Python loop of steps over an index matrix.
@@ -33,9 +35,10 @@ from scrubvae_torch.data.dataset import epoch_batches, epoch_index_matrix
 from scrubvae_torch.device import resolve_device
 from scrubvae_torch.evals import metrics as em
 from scrubvae_torch.evals.restrictiveness import generative_restrictiveness_batch
+from scrubvae_torch.models import scrubbers as scr
 from scrubvae_torch.train import optim
 from scrubvae_torch.train.state import TrainState
-from scrubvae_torch.train.step import make_eval_step, make_train_step
+from scrubvae_torch.train.step import encode_mi_state, feature_slices, make_eval_step, make_train_step
 from scrubvae_torch.utils import checkpoint as ckpt
 from scrubvae_torch.utils.logging import MetricLogger
 
@@ -73,31 +76,57 @@ class Trainer:
 
         factory.init_weights(self.model, self.seed)
         self._maybe_lowp_params()
+        self.adv_bundle = factory.init_adv_bundle(
+            self.dis_cfg, info["z_dim"], info["feat_dims"], self.seed, self.device
+        )
+        self.mcmi_bandwidth = float(self.dis_cfg.get("bandwidth") or 1.0)
+        self.mcmi_var_mode = self.dis_cfg.get("var_mode") or "sphere"
+        self.use_mcmi = "mcmi" in self.loss_cfg
+        mi_state = None
+        if self.use_mcmi:
+            # zeros, not yet valid: the mcmi loss is 0 until the first refresh
+            f32 = dict(dtype=torch.float32, device=self.device)
+            mi_state = scr.mi_init(
+                torch.zeros((self.batch_size, info["z_dim"]), **f32),
+                torch.zeros((self.batch_size, max(info["conditional_dim"], 1)), **f32),
+                self.mcmi_bandwidth, self.mcmi_var_mode,
+                model_diag=torch.zeros((self.batch_size, info["z_dim"]), **f32), valid=0.0,
+            )
         self.state = TrainState(
             step=0,
             opt_state=self.tx.init(list(self.model.parameters())),
             scrub_state=factory.init_scrub_state(
-                self.dis_cfg, self.loss_cfg, info["z_dim"], info["feat_dims"], self.device
+                self.dis_cfg, self.loss_cfg, info["z_dim"], info["feat_dims"], self.device,
+                discrete_classes=self.train_ds.discrete_classes,
             ),
             generator=torch.Generator(device=self.device).manual_seed(self.seed),
+            adv_states=dict(self.adv_bundle["states"]) if self.adv_bundle else {},
+            mi_state=mi_state,
         )
+        self.np_rng = np.random.default_rng(self.seed)  # the batch order
         model_cfg = config.get("model") or {}
         self.start_epoch = int(model_cfg.get("start_epoch") or 0)
         load_model = model_cfg.get("load_model")
         if load_model and self.start_epoch:
             ckpt.load_weights(load_model, self.start_epoch, self.model)
-            full = ckpt.load_train_state(load_model, self.start_epoch, self.model, self.state)
+            full = ckpt.load_train_state(load_model, self.start_epoch, self.model, self.state, self.np_rng)
             if full is not None:
                 self.state = full
 
         tree = self.train_ds.kinematic_tree
+        self.feat_slices = feature_slices(info["conditional_keys"], info["feat_dims"])
+        adv_fit = self.dis_cfg.get("adv_fit")
         self.train_step = make_train_step(
             self.model, self.tx, tree, disentangle_config=self.dis_cfg, batch_fn=self.train_ds.batch,
+            loss_keys=tuple(self.loss_cfg), feat_slices=self.feat_slices,
+            adv_tx=self.adv_bundle["tx"] if self.adv_bundle else None,
+            adv_fit=adv_fit is None or bool(adv_fit), adv_n_iter=int(self.dis_cfg.get("n_iter") or 5),
+            mcmi_bandwidth=self.mcmi_bandwidth, mcmi_var_mode=self.mcmi_var_mode,
         )
         self.eval_step = (
             make_eval_step(
                 self.model, tree, disentangle_config=self.dis_cfg,
-                loss_keys=tuple(self.loss_cfg), batch_fn=self.val_ds.batch,
+                loss_keys=tuple(self.loss_cfg), batch_fn=self.val_ds.batch, feat_slices=self.feat_slices,
             )
             if self.val_ds is not None
             else None
@@ -109,7 +138,6 @@ class Trainer:
             resume=bool(load_model) and self.start_epoch > 0,
             start_epoch=self.start_epoch,
         )
-        self.np_rng = np.random.default_rng(self.seed)
 
     def loss_scale_for_epoch(self, epoch: int) -> Dict[str, float]:
         scale = {k: float(v) for k, v in self.loss_cfg.items()}
@@ -148,15 +176,32 @@ class Trainer:
     def _gen_restrict_keys(self) -> tuple:
         return tuple(k for k in self.info["disentangle_keys"] if k in GEN_RESTRICT_KEYS)
 
+    def _refresh_eval_mi(self) -> None:
+        """Rebuild the MCMI estimator from ``batch_size`` strided validation
+        windows, ``(arange(B) * max(n // B, 1)) % n``, encoded under the
+        current parameters, and write it into the train state: the next
+        train epoch starts from it."""
+        n = len(self.val_ds)
+        idx = (np.arange(self.batch_size) * max(n // self.batch_size, 1)) % n
+        data = self.val_ds.batch(torch.as_tensor(idx, device=self.device))
+        var = self.model.vae.build_conditionals(data)
+        mi = encode_mi_state(self.model, data, var, self.mcmi_bandwidth, self.mcmi_var_mode)
+        self.state = self.state.replace(mi_state=mi)
+
     def test_epoch(self, epoch: int, draws: Optional[Dict[str, list]] = None):
         """Validation epoch over the whole val split: full batches, then the
         ``len(val) % batch_size`` tail, each batch's mean losses weighted by
         its size; the generative-restrictiveness R^2 of each conditioned
-        factor over all samples. ``draws[key][b]`` is the random draw of
-        batch ``b`` for ``key`` (see ``generative_restrictiveness_batch``);
-        by default they come from a generator seeded with ``1000 + epoch``,
-        one draw a batch per key in key order. Returns (metrics, mu of every
-        val sample as a numpy array)."""
+        factor over all samples. With MCMI on, the estimator is rebuilt from
+        the validation split first (``_refresh_eval_mi``). ``draws[key][b]``
+        is the random draw of batch ``b`` for ``key`` (see
+        ``generative_restrictiveness_batch``); by default they come from a
+        generator seeded with ``1000 + epoch``, which also draws each
+        batch's adversarial shuffle first: a batch's shuffle, then one draw
+        per key in key order. Returns (metrics, mu of every val sample as a
+        numpy array)."""
+        if self.use_mcmi:
+            self._refresh_eval_mi()
         loss_scale = self.loss_scale_for_epoch(epoch)
         gen = torch.Generator(device=self.device).manual_seed(1000 + epoch)
         tree = self.val_ds.kinematic_tree
@@ -166,7 +211,7 @@ class Trainer:
         for b, idx in enumerate(epoch_batches(len(self.val_ds), self.batch_size, None, drop_last=False)):
             idx = torch.as_tensor(idx, device=self.device)
             data = self.val_ds.batch(idx)
-            bl, mu = self.eval_step(self.state, idx, loss_scale, data=data)
+            bl, mu = self.eval_step(self.state, idx, loss_scale, data=data, generator=gen)
             losses.append((bl, len(idx)))
             zs.append(mu)
             for key in keys:
@@ -245,10 +290,13 @@ class Trainer:
             factory.init_weights(self.model.grad_reversal, self.seed * 100003 + epoch)
 
     def lambda_metrics(self) -> Dict[str, float]:
-        return {
+        out = {
             f"lambda_mals_{k}": float(st.lam1)
             for k, st in self.state.scrub_state.get("moving_avg_lsq", {}).items()
         }
+        for k, st in self.state.scrub_state.get("qda", {}).items():
+            out[f"lambda_qda_{k}"] = float(st.lama.mean())
+        return out
 
     def _check_finite(self, train_metrics: Dict[str, float], epoch: int) -> None:
         """Divergence tripwire: a non-finite epoch loss halts the run with a
@@ -257,7 +305,7 @@ class Trainer:
         if self.train_cfg.get("halt_on_nonfinite") is False or np.isfinite(train_metrics.get("total", 0.0)):
             return
         bad = {k: v for k, v in train_metrics.items() if not np.isfinite(v)}
-        path = ckpt.save_train_state(self.out_path, epoch, self.model, self.state)
+        path = ckpt.save_train_state(self.out_path, epoch, self.model, self.state, self.np_rng)
         raise FloatingPointError(
             f"non-finite training loss at epoch {epoch}: {bad}; diagnostic train state saved "
             f"to {path} (set train.halt_on_nonfinite: false to train through)"
@@ -276,12 +324,15 @@ class Trainer:
 
             if epoch % 5 == 0:
                 ckpt.save_weights(self.out_path, epoch, self.model)
-                if epoch % 20 == 0:
-                    ckpt.save_train_state(self.out_path, epoch, self.model, self.state)
                 if epoch >= self.eval_start_epoch and self.eval_step is not None:
                     test_metrics, z_val = self.test_epoch(epoch)
                     metrics.update({f"{k}_test": v for k, v in test_metrics.items()})
                     metrics.update(self.decodability_metrics(z_val))
+                # after the validation epoch, whose MCMI refresh the next
+                # epoch starts from (the JAX package saves before it), so a
+                # resume trains on as the run would have
+                if epoch % 20 == 0:
+                    ckpt.save_train_state(self.out_path, epoch, self.model, self.state, self.np_rng)
 
             self.logger.log(metrics, epoch)
         return self.state

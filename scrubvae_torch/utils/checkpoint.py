@@ -10,7 +10,12 @@ are not read.
   their storage dtype, so bf16 leaves stay bf16.
 - Full state: the weights plus the optimizer's moments, its device step
   count and host step (the Philox counter of the rounding bits), the
-  streaming scrubber states and the reparameterisation generator's state.
+  streaming scrubber states (MALS, QDA), each adversarial discriminator's
+  parameters with its own optimizer's moments and counts, the MCMI
+  estimator, the state of the generator of the sample noise and the
+  shuffles and, where the caller gives it, the state of the numpy
+  generator of the batch order (so a resumed epoch draws the batches the
+  run would have drawn).
 
 Loading writes into the live tensors in place (``copy_``): the optimizer's
 leaf table records where every parameter and moment lies and refuses a
@@ -24,6 +29,7 @@ import re
 from pathlib import Path
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -124,36 +130,64 @@ def load_weights(load_path: str, epoch: int, model: nn.Module) -> None:
     _copy_into(model, torch.load(path, map_location="cpu", weights_only=True))
 
 
-def _scrub_tensors(scrub_state: dict) -> dict:
+def _tensor_fields(st) -> dict:
+    """The tensor fields of a state dataclass, as CPU copies."""
     return {
-        method: {
-            feat: {
-                f.name: getattr(st, f.name).detach().cpu()
-                for f in dataclasses.fields(st)
-                if isinstance(getattr(st, f.name), torch.Tensor)
-            }
-            for feat, st in states.items()
-        }
-        for method, states in scrub_state.items()
+        f.name: getattr(st, f.name).detach().cpu()
+        for f in dataclasses.fields(st)
+        if isinstance(getattr(st, f.name), torch.Tensor)
     }
 
 
-def save_train_state(out_path: str, epoch: int, model: nn.Module, state: TrainState) -> str:
+def _with_tensors(st, saved: dict):
+    """``st`` with its tensor fields replaced by ``saved``'s, on their
+    devices."""
+    return st.replace(**{k: v.to(getattr(st, k).device) for k, v in saved.items()})
+
+
+def _opt_tensors(opt) -> dict:
+    return {
+        "count": opt.count.detach().cpu(),
+        "step": opt.step,
+        "mu": [m.detach().cpu() for m in opt.mu],
+        "nu": [n.detach().cpu() for n in opt.nu],
+    }
+
+
+def _restore_opt(opt, saved: dict):
+    """Copy saved moments into ``opt``'s in place (its leaf table holds
+    them); returns ``opt`` with the saved counts."""
+    for dst, src in zip(opt.mu + opt.nu, saved["mu"] + saved["nu"]):
+        if dst.shape != src.shape or dst.dtype != src.dtype:
+            raise ValueError(
+                f"moment {tuple(src.shape)} {src.dtype} in the checkpoint, "
+                f"{tuple(dst.shape)} {dst.dtype} in the optimizer"
+            )
+        dst.copy_(src)
+    return dataclasses.replace(opt, count=saved["count"].to(opt.count.device), step=int(saved["step"]))
+
+
+def save_train_state(
+    out_path: str, epoch: int, model: nn.Module, state: TrainState, np_rng: Optional[np.random.Generator] = None
+) -> str:
     path = Path(out_path) / "checkpoints" / f"epoch_{epoch}.pt"
     path.parent.mkdir(parents=True, exist_ok=True)
-    opt = state.opt_state
     torch.save(
         {
             "model": _cpu_state_dict(model),
             "step": state.step,
-            "opt": {
-                "count": opt.count.detach().cpu(),
-                "step": opt.step,
-                "mu": [m.detach().cpu() for m in opt.mu],
-                "nu": [n.detach().cpu() for n in opt.nu],
+            "opt": _opt_tensors(state.opt_state),
+            "scrub": {
+                method: {feat: _tensor_fields(st) for feat, st in states.items()}
+                for method, states in state.scrub_state.items()
             },
-            "scrub": _scrub_tensors(state.scrub_state),
+            "adv": {
+                feat: {"net": _cpu_state_dict(st.net), "opt": _opt_tensors(st.opt_state)}
+                for feat, st in state.adv_states.items()
+            },
+            "mi": None if state.mi_state is None else _tensor_fields(state.mi_state),
             "generator": state.generator.get_state(),
+            "np_rng": None if np_rng is None else np_rng.bit_generator.state,
         },
         path,
     )
@@ -162,36 +196,36 @@ def save_train_state(out_path: str, epoch: int, model: nn.Module, state: TrainSt
 
 @torch.no_grad()
 def load_train_state(
-    load_path: str, epoch: int, model: nn.Module, state: TrainState
+    load_path: str, epoch: int, model: nn.Module, state: TrainState, np_rng: Optional[np.random.Generator] = None
 ) -> Optional[TrainState]:
-    """Restore ``checkpoints/epoch_E.pt`` into ``model`` and ``state``'s
-    moments in place; returns the state with the step counts, scrubber
-    states and generator restored, or None when there is no such file."""
+    """Restore ``checkpoints/epoch_E.pt`` into ``model``, the
+    discriminators, the moments and ``np_rng`` (when both the file and the
+    caller have one) in place; returns the state with the step counts,
+    scrubber and MCMI states and generator restored, or None when there is
+    no such file."""
     path = Path(load_path) / "checkpoints" / f"epoch_{epoch}.pt"
     if not path.exists():
         return None
     ck = torch.load(path, map_location="cpu", weights_only=True)
     _copy_into(model, ck["model"])
-    opt = state.opt_state
-    for dst, src in zip(opt.mu + opt.nu, ck["opt"]["mu"] + ck["opt"]["nu"]):
-        if dst.shape != src.shape or dst.dtype != src.dtype:
-            raise ValueError(
-                f"moment {tuple(src.shape)} {src.dtype} in the checkpoint, "
-                f"{tuple(dst.shape)} {dst.dtype} in the optimizer"
-            )
-        dst.copy_(src)
     scrub = {
-        method: {
-            feat: st.replace(**{k: v.to(getattr(st, k).device) for k, v in ck["scrub"][method][feat].items()})
-            for feat, st in states.items()
-        }
+        method: {feat: _with_tensors(st, ck["scrub"][method][feat]) for feat, st in states.items()}
         for method, states in state.scrub_state.items()
     }
+    adv = {}
+    for feat, st in state.adv_states.items():
+        _copy_into(st.net, ck["adv"][feat]["net"])
+        adv[feat] = dataclasses.replace(st, opt_state=_restore_opt(st.opt_state, ck["adv"][feat]["opt"]))
+    mi = state.mi_state
+    if mi is not None:
+        mi = _with_tensors(mi, ck["mi"])
     state.generator.set_state(ck["generator"])
+    if np_rng is not None and ck.get("np_rng") is not None:
+        np_rng.bit_generator.state = ck["np_rng"]
     return state.replace(
         step=int(ck["step"]),
-        opt_state=dataclasses.replace(
-            opt, count=ck["opt"]["count"].to(opt.count.device), step=int(ck["opt"]["step"])
-        ),
+        opt_state=_restore_opt(state.opt_state, ck["opt"]),
         scrub_state=scrub,
+        adv_states=adv,
+        mi_state=mi,
     )

@@ -16,7 +16,9 @@ rules (``scrubvae_tpu/utils/torch_export.py`` holds the same ones):
 - scalar PReLU alpha                        -> weight of shape (1,)
 
 The maps are linear rearrangements, so they carry gradients and updates
-as well as weights.
+as well as weights. ``adv_from_jax`` does the same for an adversarial
+discriminator's tree, and ``*_state_from_numpy`` carry the arrays of the
+JAX package's streaming-scrubber and MCMI states.
 """
 
 from __future__ import annotations
@@ -27,9 +29,15 @@ from typing import Dict
 import numpy as np
 import torch
 
-from scrubvae_torch.models.scrubbers import MALSState
+from scrubvae_torch.models.scrubbers import MALSState, MIState, QDAState
 
-__all__ = ["from_jax_variables", "mals_state_from_numpy"]
+__all__ = [
+    "from_jax_variables",
+    "adv_from_jax",
+    "mals_state_from_numpy",
+    "qda_state_from_numpy",
+    "mi_state_from_numpy",
+]
 
 
 def _conv_w(k: np.ndarray) -> np.ndarray:
@@ -168,13 +176,47 @@ def from_jax_variables(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.ascontiguousarray(v).reshape(v.shape)) for k, v in sd.items()}
 
 
+def adv_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """``AdvNet`` state dict (CPU f32 tensors) from a flattened flax
+    ``AdvNet`` tree (``params/MLPEnsemble_0/mlpN_j/{kernel,bias}``, or the
+    same leaves of an AdamW moment tree), kernels transposed."""
+    sd = {}
+    for p, v in flat.items():
+        m = re.fullmatch(r"(?:params/)?MLPEnsemble_0/(mlp\d_\d)/(kernel|bias)", p)
+        if m is None:
+            raise KeyError(f"adv_from_jax: no port counterpart for {p}")
+        layer, kind = m.groups()
+        v = np.array(v, dtype=np.float32)
+        sd[f"ensemble.{layer}." + ("weight" if kind == "kernel" else "bias")] = v.T if kind == "kernel" else v
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def _from_numpy(arrays: Dict[str, np.ndarray], like, fields, device):
+    return like.replace(
+        **{k: torch.as_tensor(np.array(arrays[k], np.float32), device=device) for k in fields}
+    )
+
+
 def mals_state_from_numpy(arrays: Dict[str, np.ndarray], like: MALSState, device=None) -> MALSState:
     """A MALS state with the arrays of a JAX ``MALSState`` (Sxx0, Sxy0, Sxx1,
     Sxy1, lam0, lam1) and ``like``'s static settings."""
     dev = like.Sxx0.device if device is None else device
-    return like.replace(
-        **{
-            k: torch.as_tensor(np.asarray(arrays[k], np.float32), device=dev)
-            for k in ("Sxx0", "Sxy0", "Sxx1", "Sxy1", "lam0", "lam1")
-        }
-    )
+    return _from_numpy(arrays, like, ("Sxx0", "Sxy0", "Sxx1", "Sxy1", "lam0", "lam1"), dev)
+
+
+QDA_FIELDS = ("m0a", "m1a", "m0b", "m1b", "S0a", "S1a", "S0b", "S1b", "lama", "lamb")
+MI_FIELDS = ("x_s", "y_s", "var_s", "logA_x", "logA_y", "valid")
+
+
+def qda_state_from_numpy(arrays: Dict[str, np.ndarray], like: QDAState, device=None) -> QDAState:
+    """A QDA state with the f32 arrays of a JAX ``QDAState`` and ``like``'s
+    classes and static settings."""
+    dev = like.m0a.device if device is None else device
+    return _from_numpy(arrays, like, QDA_FIELDS, dev)
+
+
+def mi_state_from_numpy(arrays: Dict[str, np.ndarray], like: MIState, device=None) -> MIState:
+    """An MCMI state with the arrays of a JAX ``MIState`` and ``like``'s
+    bandwidth and variance mode."""
+    dev = like.x_s.device if device is None else device
+    return _from_numpy(arrays, like, MI_FIELDS, dev)

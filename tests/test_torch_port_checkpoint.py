@@ -320,3 +320,135 @@ def test_train_entry_takes_given_datasets(run20, tmp_path):
     with open(tmp_path / "metrics.csv", newline="") as f:
         rows = list(csv.DictReader(f))
     assert [r["epoch"] for r in rows] == ["1"] and not any(k.endswith("_test") for k in rows[0])
+
+
+# ---------------------------------------------------------------------------
+# the full scrubber stack: QDA, discriminator and MCMI states in the full state
+# ---------------------------------------------------------------------------
+
+QDA_FIELDS = ("m0a", "m1a", "m0b", "m1b", "S0a", "S1a", "S0b", "S1b", "lama", "lamb")
+MI_FIELDS = ("x_s", "y_s", "var_s", "logA_x", "logA_y", "valid")
+# the JAX package's columns for this config, in its order: the sorted train
+# losses (their names are held to the JAX step's in
+# tests/test_torch_port_step_full.py), the lambdas, the epoch time, then at a
+# validation epoch the sorted validation losses, then restrictiveness
+FULL_COLUMNS = [
+    "epoch",
+    *(f"{k}_train" for k in (
+        "avg_speed_3d_an", "avg_speed_3d_gr", "avg_speed_3d_lin", "avg_speed_3d_mals", "ids_qda", "jpe",
+        "mcmi", "prior", "root", "rotation", "total", "total_correlation",
+    )),
+    "lambda_mals_avg_speed_3d", "lambda_qda_ids", "time",
+    *(f"{k}_test" for k in (
+        "avg_speed_3d_an", "avg_speed_3d_gr", "avg_speed_3d_lin", "avg_speed_3d_mals", "ids_qda", "jpe",
+        "mcmi", "prior", "root", "rotation", "total", "total_correlation",
+        "r2_gen_restrict_avg_speed_3d", "r2_gen_restrict_heading",
+    )),
+]
+
+
+def full_config(data: Path, num_epochs: int) -> dict:
+    """configs/ladder/5_full.yaml's method map and losses at the small size
+    above (z 16: the dense head), validation from epoch 20."""
+    cfg = base_config(data, num_epochs)
+    with open(ROOT / "configs" / "ladder" / "5_full.yaml") as f:
+        full = yaml.safe_load(f)
+    cfg["disentangle"] = full["disentangle"]
+    cfg["loss"] = full["loss"]
+    cfg["model"]["z_dim"] = 16
+    cfg["train"].update(eval_start_epoch=20, beta_anneal=True)
+    return cfg
+
+
+def full_snapshot(trainer) -> dict:
+    """``snapshot`` plus the QDA state, the discriminator's parameters,
+    moments and counts, and the MCMI state."""
+    st = trainer.state
+    snap = snapshot(trainer)
+    qda = st.scrub_state["qda"]["ids"]
+    adv = st.adv_states["avg_speed_3d"]
+    snap.update(
+        qda={f: getattr(qda, f).clone() for f in QDA_FIELDS},
+        adv={k: v.detach().clone() for k, v in adv.net.state_dict().items()},
+        adv_mu=[m.clone() for m in adv.opt_state.mu],
+        adv_nu=[n.clone() for n in adv.opt_state.nu],
+        adv_counts=(adv.opt_state.count.clone(), adv.opt_state.step),
+        mi={f: getattr(st.mi_state, f).clone() for f in MI_FIELDS},
+    )
+    return snap
+
+
+def assert_same_full_state(a: dict, b: dict) -> None:
+    assert_same_state(a, b)
+    for part in ("qda", "adv", "mi"):
+        assert a[part].keys() == b[part].keys()
+        for k in a[part]:
+            assert bits_equal(a[part][k], b[part][k]), (part, k)
+    for part in ("adv_mu", "adv_nu"):
+        assert all(bits_equal(x, y) for x, y in zip(a[part], b[part])), part
+    assert bits_equal(a["adv_counts"][0], b["adv_counts"][0]) and a["adv_counts"][1] == b["adv_counts"][1]
+
+
+@pytest.fixture(scope="module")
+def run_full(tmp_path_factory):
+    """A 21-epoch full-stack run; its state at the end of epochs 20 and 21."""
+    root = tmp_path_factory.mktemp("ckpt_full")
+    data = write_data(root)
+    run = write_run(root / "runs", "full", full_config(data, 20))
+    trainer = main(["-o", str(root / "runs"), "-p", "proj", "-n", "full", "--device", "cpu"])
+    at20 = full_snapshot(trainer)
+    trainer.start_epoch = 20
+    trainer.fit(21)
+    return root, data, run, trainer, at20, full_snapshot(trainer)
+
+
+def test_full_stack_state_round_trips_bitwise(run_full, tmp_path):
+    _, _, _, trainer, _, snap = run_full
+    ckpt.save_train_state(tmp_path, 3, trainer.model, trainer.state)
+    fresh = Trainer(
+        trainer.config, {"train": trainer.train_ds, "val": trainer.val_ds}, fresh_model(trainer),
+        trainer.info, device="cpu",
+    )
+    adv = fresh.state.adv_states["avg_speed_3d"]
+    ptrs = [p.data_ptr() for p in adv.net.parameters()] + [m.data_ptr() for m in adv.opt_state.mu]
+    assert not bits_equal(full_snapshot(fresh)["adv"]["ensemble.mlp1_0.weight"], snap["adv"]["ensemble.mlp1_0.weight"])
+    fresh.state = ckpt.load_train_state(tmp_path, 3, fresh.model, fresh.state)
+    assert_same_full_state(full_snapshot(fresh), snap)
+    # loaded in place: the discriminator's leaf table still holds
+    adv = fresh.state.adv_states["avg_speed_3d"]
+    assert ptrs == [p.data_ptr() for p in adv.net.parameters()] + [m.data_ptr() for m in adv.opt_state.mu]
+    adv.opt_state.table.check_storage([p.detach() for p in adv.net.parameters()], adv.opt_state.mu, adv.opt_state.nu)
+
+
+def test_full_stack_resume_trains_epoch_21_bitwise(run_full):
+    """Resume from epoch 20 (whose full state is saved after the validation
+    epoch's MCMI refresh): the restored state is the run's at the end of
+    epoch 20, and epoch 21 trains to the run's epoch-21 state bit for bit:
+    model, moments, MALS, QDA, discriminator and MCMI states, generator."""
+    root, data, run, _, at20, at21 = run_full
+    cfg = full_config(data, 21)
+    cfg["model"].update(load_model=str(run), start_epoch=20)
+    config = read.config(write_run(root / "runs", "full_resumed", cfg) / "model_config.yaml")
+    datasets, model, info = factory.data_and_model(
+        config, data_keys=("x6d", "root", "offsets", "target_pose", "avg_speed_3d", "heading", "ids"), device="cpu",
+    )
+    trainer = Trainer(config, datasets, model, info, device="cpu")
+    assert_same_full_state(full_snapshot(trainer), at20)
+    trainer.fit()
+    assert_same_full_state(full_snapshot(trainer), at21)
+
+
+def test_full_stack_metrics_columns(run_full):
+    _, _, run, _, _, _ = run_full
+    with open(run / "metrics.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    assert list(rows[0]) == FULL_COLUMNS
+    assert [r["epoch"] for r in rows] == [str(e) for e in range(1, 22)]
+    for r in rows:
+        for k in FULL_COLUMNS[1:]:
+            if k.endswith("_test"):
+                assert (r[k] != "") == (r["epoch"] == "20"), (r["epoch"], k)
+            if r[k]:
+                assert np.isfinite(float(r[k])), (r["epoch"], k)
+    lam = [float(r["lambda_qda_ids"]) for r in rows]
+    assert lam[0] != 0.2 and len(set(lam)) > 1

@@ -136,3 +136,124 @@ def test_unported_paths_raise(pair, tmp_path, what):
         match = "parkinsons"
     with pytest.raises(NotImplementedError, match=match):
         factory.data_and_model(cfg, data_keys=TRAIN_KEYS, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the full scrubber stack: head rule, scrubber states, adversarial bundle
+# ---------------------------------------------------------------------------
+
+FULL_DIS = {
+    "method": {
+        "conditional": ["avg_speed_3d", "heading"], "linear": ["avg_speed_3d"],
+        "moving_avg_lsq": ["avg_speed_3d"], "grad_reversal": ["avg_speed_3d"],
+        "adversarial_net": ["avg_speed_3d"], "qda": ["ids"],
+    },
+    "features": ["avg_speed_3d", "heading"],
+}
+FULL_MODEL = {"type": "rcnn", "z_dim": 16, "window": 51, "channel": [8, 8, 16, 16, 32]}
+ARENA = np.asarray([[-290, -290, 0], [290, 290, 120]], np.float32)
+
+
+@pytest.mark.parametrize(
+    "loss_keys,packed_sigma,packed",
+    [
+        (("rotation", "prior", "total_correlation"), None, False),
+        (("rotation", "prior", "mcmi"), None, True),
+        (None, None, False),
+        (("rotation", "prior", "total_correlation"), True, True),
+        (("rotation", "prior"), False, False),
+    ],
+)
+def test_packed_head_rule_matches_jax(loss_keys, packed_sigma, packed):
+    """Packed unless total correlation is a loss key or the keys are unknown;
+    an explicit ``model.packed_sigma`` wins. The same ``fc_sigma`` either
+    way."""
+    model_cfg = dict(FULL_MODEL, packed_sigma=packed_sigma)
+    jmodel, _ = jfactory.build_model(model_cfg, FULL_DIS, 18, "midfwd", arena_size=ARENA, loss_keys=loss_keys)
+    model, _ = factory.build_model(model_cfg, FULL_DIS, 18, "midfwd", arena_size=ARENA, loss_keys=loss_keys, device="cpu")
+    assert jmodel.vae.packed_sigma == model.vae.packed_sigma == packed
+    assert model.vae.sigma_key == ("Lp" if packed else "L")
+    assert tuple(model.vae.encoder.fc_sigma[0].weight.shape) == (16 * 17 // 2, 32 * 4)
+    batch = {
+        "x6d": torch.zeros(2, 51, 18, 6), "root": torch.zeros(2, 51, 3),
+        "avg_speed_3d": torch.zeros(2, 3), "heading": torch.zeros(2, 2),
+    }
+    L = model.vae.encode(batch)[model.vae.sigma_key]
+    assert tuple(L.shape) == ((2, 136) if packed else (2, 16, 16))
+
+
+def test_init_scrub_state_and_adv_bundle_match_jax():
+    """QDA over the discrete classes, MALS as before, and one discriminator
+    per adversarial feature over (z, conditionals) with the JAX tree's
+    leaves and shapes, its own fused AdamW (lr 0.1, weight decay 1e-4, f32
+    moments) and one launch of the f32 variant a step."""
+    from scrubvae_tpu.models import scrubbers as jscr
+    from scrubvae_torch.train.optim import FusedAdamW
+    from scrubvae_torch.utils.weights import adv_from_jax
+    import flax
+    import jax
+
+    classes = {"ids": np.array([0, 3, 4])}
+    fdims = factory.feat_dims(FULL_MODEL, classes)
+    loss = {"avg_speed_3d_mals": 0.1, "ids_qda": 0.01}
+    jscrub, jbundle = jfactory.init_scrub_state(jax.random.PRNGKey(0), FULL_DIS, loss, 16, fdims, classes)
+    scrub = factory.init_scrub_state(FULL_DIS, loss, 16, fdims, "cpu", discrete_classes=classes)
+    assert scrub.keys() == jscrub.keys() == {"moving_avg_lsq", "qda"}
+    jq, q = jscrub["qda"]["ids"], scrub["qda"]["ids"]
+    np.testing.assert_array_equal(q.classes.numpy(), np.asarray(jq.classes))
+    for f in ("m0a", "S1b", "lama", "lamb"):
+        np.testing.assert_array_equal(getattr(q, f).numpy(), np.asarray(getattr(jq, f)))
+
+    bundle = factory.init_adv_bundle(FULL_DIS, 16, fdims, seed=0, device="cpu")
+    assert bundle["states"].keys() == jbundle["states"].keys() == {"avg_speed_3d"}
+    tx = bundle["tx"]
+    assert isinstance(tx, FusedAdamW)
+    assert (tx.lr, tx.wd, tx.m_dtype, tx.clip_norm) == (0.1, 1e-4, torch.float32, None)
+    st = bundle["states"]["avg_speed_3d"]
+    want = adv_from_jax(
+        {k: np.asarray(v) for k, v in flax.traverse_util.flatten_dict(jbundle["states"]["avg_speed_3d"].params, sep="/").items()}
+    )
+    got = st.net.state_dict()
+    assert {k: tuple(v.shape) for k, v in got.items()} == {k: tuple(v.shape) for k, v in want.items()}
+    assert got["ensemble.mlp1_0.weight"].shape == (21, 21)  # z 16 + avg_speed_3d 3 + heading 2
+    assert all(float(got[k].abs().max()) == 0.0 for k in got if k.endswith(".bias"))
+    assert len(st.opt_state.table.w) == 22 and len(st.opt_state.table.batches) == 1
+    assert all(m.dtype == torch.float32 for m in st.opt_state.mu + st.opt_state.nu)
+    # not a parameter of the model, and drawn from a seed of its own
+    again = factory.init_adv_bundle(FULL_DIS, 16, fdims, seed=0, device="cpu")["states"]["avg_speed_3d"]
+    assert all(torch.equal(a, b) for a, b in zip(again.net.parameters(), st.net.parameters()))
+    assert factory.init_adv_bundle({"method": {"linear": ["avg_speed_3d"]}}, 16, fdims, 0, "cpu") is None
+
+
+@pytest.mark.parametrize("ladder,packed", [("4_adversarial", True), ("5_full", False)])
+def test_ladder_configs_build_and_train(pair, tmp_path, ladder, packed):
+    """``data_and_model`` and ``train`` take the method map and loss keys of
+    the ladder's adversarial and full configs (at small widths, one epoch):
+    the full config gets the dense head, the adversarial one the packed
+    head; every loss term finite."""
+    import yaml
+
+    from scrubvae_torch.train.trainer import train
+
+    with open(ROOT / "configs" / "ladder" / f"{ladder}.yaml") as f:
+        cfg = yaml.safe_load(f)
+    base = config(Path(pair[0]["data"]["data_path"]))
+    cfg["data"] = dict(base["data"])
+    cfg["model"].update(z_dim=16, channel=[8, 8, 16, 16, 32], precision="fp32")
+    cfg["train"].update(num_epochs=1, minimal_test=True, precision="fp32")
+    cfg["disentangle"]["features"] = ["avg_speed_3d", "heading"]
+    cfg["out_path"] = str(tmp_path)
+    datasets, model, info = factory.data_and_model(cfg, data_keys=TRAIN_KEYS, device="cpu")
+    assert model.vae.packed_sigma == packed
+    trainer = train(cfg, datasets, model, info, device="cpu")
+    assert trainer.state.adv_states.keys() == {"avg_speed_3d"}
+    assert trainer.state.scrub_state["qda"].keys() == {"ids"}
+    assert (trainer.state.mi_state is not None) == ("mcmi" in cfg["loss"])
+    import csv
+
+    with open(tmp_path / "metrics.csv", newline="") as f:
+        row = next(csv.DictReader(f))
+    terms = {k for k in row if k.endswith("_train")}
+    assert {"avg_speed_3d_an_train", "ids_qda_train", "total_train"} <= terms
+    assert all(np.isfinite(float(row[k])) for k in terms)
+    assert "lambda_qda_ids" in row
