@@ -1,13 +1,15 @@
 """Device-resident preprocessing pipeline (counterpart of
-``scrubvae_tpu/data/pipeline.py``: ``build_frame_store`` and the midfwd
-path of ``assemble_windows``).
+``scrubvae_tpu/data/pipeline.py``: ``build_frame_store``,
+``assemble_windows`` for the midfwd and x360 processes, and
+``materialize``).
 
 * Per-frame stage, once, on the device: IK to local quaternions, per-frame
   segment-length offsets and yaw, plus the cont6d representation and the
   zero-root forward kinematics of every frame.
 * Per-window stage, inside each train step: gather the batch's (B, W)
-  frames, centre on the mid frame, rotate into its heading (midfwd), and
-  compute the windowed speed features.
+  frames, centre on the mid frame, rotate into its heading (midfwd) or
+  not (x360), and compute the windowed speed features and, when asked
+  for, the heading-free encoder view.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from scrubvae_torch.device import resolve_device
 from scrubvae_torch.ops import kinematics as kin
 from scrubvae_torch.ops import quaternion as qtn
 
-__all__ = ["FrameStore", "build_frame_store", "assemble_windows"]
+__all__ = ["FrameStore", "build_frame_store", "assemble_windows", "materialize"]
 
 SPEED_PARTS = (
     (0, 1, 2, 3, 4, 5),  # spine and head
@@ -121,7 +123,11 @@ def build_frame_store(
     )
 
 
-SUPPORTED_KEYS = ("x6d", "root", "offsets", "target_pose", "avg_speed_3d", "heading", "ids")
+SUPPORTED_KEYS = (
+    "x6d", "root", "offsets", "target_pose", "avg_speed_3d", "heading", "ids",
+    "raw_pose", "x6d_enc", "root_enc",
+)
+DIRECTION_PROCESSES = ("midfwd", "x360")
 
 
 @torch.no_grad()
@@ -133,11 +139,24 @@ def assemble_windows(
     direction_process: str = "midfwd",
 ) -> Dict[str, torch.Tensor]:
     """Per-window stage for the windows starting at ``start_idx`` (B,):
-    mid-frame xy centering, midfwd half-yaw rotation of the root quaternion
-    and root trajectory, precomputed cont6d and target pose, windowed speed
-    features, mid-frame heading."""
-    if direction_process != "midfwd":
-        raise NotImplementedError("scrubvae_torch assembles midfwd windows only")
+    mid-frame xy centering; with midfwd, the half-yaw rotation of the root
+    quaternion, the root trajectory and the target pose into the mid-frame
+    heading; with x360, none (the absolute representation). Then the
+    precomputed cont6d and target pose, the windowed speed features, the
+    mid-frame heading and the raw pose window.
+
+    ``x6d_enc``/``root_enc`` are a heading-free view of the same window for
+    the encoder (``data.encoder_direction_process``): the root trajectory
+    rotated into the mid-frame heading, and the IK of the pose window
+    centred on the mid-frame root (all three coordinates) and rotated the
+    same way. The IK is run again per window because its child-joint
+    rotations are not yaw-equivariant, so rotating the per-frame cont6d
+    would leave the heading in every limb row."""
+    if direction_process not in DIRECTION_PROCESSES:
+        raise NotImplementedError(
+            f"scrubvae_torch assembles {' and '.join(DIRECTION_PROCESSES)} windows only "
+            f"(got direction_process={direction_process!r})"
+        )
     unknown = set(data_keys) - set(SUPPORTED_KEYS)
     if unknown:
         raise NotImplementedError(f"scrubvae_torch cannot assemble {sorted(unknown)}")
@@ -146,37 +165,68 @@ def assemble_windows(
     mid = start_idx + W // 2
     out: Dict[str, torch.Tensor] = {}
     yaw_mid = store.yaw[mid]  # (B,)
+    need_pose = any(k in data_keys for k in ("avg_speed_3d", "raw_pose", "x6d_enc"))
+    pose_w = store.pose[fidx] if need_pose else None  # (B, W, J, 3)
 
     if "heading" in data_keys:
         out["heading"] = kin.angle2D(yaw_mid[:, None])
 
     if "avg_speed_3d" in data_keys:
-        spd = kin.speed_parts(store.pose[fidx], SPEED_PARTS, store.part_centered_speed)
+        spd = kin.speed_parts(pose_w, SPEED_PARTS, store.part_centered_speed)
         avg3 = torch.cat([spd[:, :2], spd[:, 2:].mean(dim=-1, keepdim=True)], dim=-1)
         stats = store.norm_params.get("avg_speed_3d")
         if stats is not None:
             avg3 = (avg3 - stats["mean"]) / stats["std"]
         out["avg_speed_3d"] = avg3
 
-    if any(k in data_keys for k in ("root", "x6d", "target_pose", "offsets")):
+    want_enc = "x6d_enc" in data_keys or "root_enc" in data_keys
+    if want_enc or any(k in data_keys for k in ("root", "x6d", "target_pose")):
+        midfwd = direction_process == "midfwd"
         root0 = store.pose[:, 0, :]
         center = root0[mid].clone()
         center[:, 2] = 0.0  # xy centering only
-        fwd_q = qtn.yaw_quat(yaw_mid)[:, None, :]  # (B, 1, 4)
-        root = qtn.qrot(fwd_q, root0[fidx] - center[:, None, :])
+        root = root0[fidx] - center[:, None, :]
+        fwd_q = qtn.yaw_quat(yaw_mid)[:, None, :] if midfwd or want_enc else None  # (B, 1, 4)
+        if "root_enc" in data_keys:
+            out["root_enc"] = qtn.qrot(fwd_q, root)
+        if "x6d_enc" in data_keys:
+            pw = qtn.qrot(fwd_q[:, :, None, :], pose_w - root0[mid][:, None, None, :])
+            out["x6d_enc"] = qtn.quaternion_to_cont6d(kin.inv_kin(pw, tree, forward_indices=[1, 0]))
         x6d = store.x6d[fidx]  # (B, W, J, 6)
-        root_q = qtn.qmul(fwd_q, store.local_quat[:, 0, :][fidx])
-        x6d = torch.cat([qtn.quaternion_to_cont6d(root_q)[:, :, None, :], x6d[:, :, 1:]], dim=2)
+        if midfwd:
+            root = qtn.qrot(fwd_q, root)
+            root_q = qtn.qmul(fwd_q, store.local_quat[:, 0, :][fidx])
+            x6d = torch.cat([qtn.quaternion_to_cont6d(root_q)[:, :, None, :], x6d[:, :, 1:]], dim=2)
         if "x6d" in data_keys:
             out["x6d"] = x6d
         if "root" in data_keys:
             out["root"] = root
-        if "offsets" in data_keys:
-            out["offsets"] = store.offsets[fidx]
         if "target_pose" in data_keys:
             # zero-root FK rotates rigidly with the yaw alignment
-            out["target_pose"] = qtn.qrot(fwd_q[:, :, None, :], store.tpose[fidx])
+            tp = store.tpose[fidx]
+            out["target_pose"] = qtn.qrot(fwd_q[:, :, None, :], tp) if midfwd else tp
 
+    if "offsets" in data_keys:
+        out["offsets"] = store.offsets[fidx]
+    if "raw_pose" in data_keys:
+        out["raw_pose"] = pose_w
     if "ids" in data_keys:
         out["ids"] = store.ids[mid]
     return out
+
+
+def materialize(
+    store: FrameStore,
+    tree: kin.KinematicTree,
+    data_keys: Sequence[str],
+    direction_process: str = "midfwd",
+    chunk: int = 4096,
+) -> Dict[str, np.ndarray]:
+    """Run the per-window stage over every window, ``chunk`` windows at a
+    time, and return numpy arrays with one row per window."""
+    outs: Dict[str, list] = {}
+    for lo in range(0, store.n_windows, chunk):
+        res = assemble_windows(store, tree, store.starts[lo : lo + chunk], tuple(data_keys), direction_process)
+        for k, v in res.items():
+            outs.setdefault(k, []).append(v.cpu().numpy())
+    return {k: np.concatenate(v, axis=0) for k, v in outs.items()}

@@ -320,14 +320,16 @@ def data_and_model(
         val_keys = list(data_keys)
     # one window for the loaders and the model, from model or data
     window = config["model"].get("window") or config["data"].get("window") or 51
+    # data.encoder_direction_process: the encoder reads a heading-free view
+    # while the target keeps the configured representation
+    # (ResVAE.encode, assemble_windows)
     enc_dp = config["data"].get("encoder_direction_process")
-    if enc_dp and enc_dp != config["data"].get("direction_process"):
-        raise NotImplementedError("scrubvae_torch has no data.encoder_direction_process yet")
+    enc_keys = ["x6d_enc", "root_enc"] if enc_dp and enc_dp != config["data"].get("direction_process") else []
 
     datasets = {
         label: mouse_data(
             config["data"], train_val_test=label,
-            data_keys=val_keys if label == "val" else list(data_keys),
+            data_keys=(val_keys if label == "val" else list(data_keys)) + enc_keys,
             window=window, device=device,
         )
         for label in train_val_test

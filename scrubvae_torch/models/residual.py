@@ -177,11 +177,14 @@ class ResVAE(nn.Module):
         )
 
     def encode(self, data: Dict[str, torch.Tensor], mu_only: bool = False) -> Dict[str, torch.Tensor]:
-        x6d = data["x6d"]
+        """mu (and the Cholesky factor) of the batch; the encoder reads the
+        heading-free view ``x6d_enc``/``root_enc`` when the batch carries it
+        (``data.encoder_direction_process``), else ``x6d``/``root``."""
+        x6d = data.get("x6d_enc", data["x6d"])
         B, W = x6d.shape[:2]
         x_in = x6d.reshape(B, W, -1)
         if self.arena is not None:
-            norm_root = normalize_root(data["root"], self.arena.to(x6d.dtype))
+            norm_root = normalize_root(data.get("root_enc", data["root"]), self.arena.to(x6d.dtype))
             x_in = torch.cat([x_in, norm_root], dim=-1)
         mu, L = self.encoder(x_in, mu_only=mu_only)
         if L is None:

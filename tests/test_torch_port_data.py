@@ -9,9 +9,11 @@ same formulas, and FK over segment lengths ~10 grows that on target_pose.
 For those two keys the port may differ from JAX by 1e-5 plus twice the JAX
 pipeline's own distance from float64, which the fixture measures.
 
-midfwd only: the x360 path is not ported yet. The JAX x360 pipeline also
-differs from upstream in tests/test_preprocess_composition.py (ROADMAP C1),
-so its port will be held against the JAX ``materialize()`` output.
+These are midfwd windows through ``StreamDataset.batch``. The x360
+windows and the heading-free encoder view are held against the JAX
+``materialize()`` output in tests/test_torch_port_x360.py (the JAX x360
+pipeline differs from upstream in tests/test_preprocess_composition.py,
+ROADMAP C1, so JAX is the reference).
 """
 
 import jax.numpy as jnp

@@ -225,35 +225,68 @@ def test_init_scrub_state_and_adv_bundle_match_jax():
     assert factory.init_adv_bundle({"method": {"linear": ["avg_speed_3d"]}}, 16, fdims, 0, "cpu") is None
 
 
-@pytest.mark.parametrize("ladder,packed", [("4_adversarial", True), ("5_full", False)])
-def test_ladder_configs_build_and_train(pair, tmp_path, ladder, packed):
-    """``data_and_model`` and ``train`` take the method map and loss keys of
-    the ladder's adversarial and full configs (at small widths, one epoch):
-    the full config gets the dense head, the adversarial one the packed
-    head; every loss term finite."""
+def _shipped(name: str) -> dict:
+    """A shipped config: ``configs/ladder/{name}.yaml``, or
+    ``configs/{name}.yaml`` for a name with its folder."""
     import yaml
+
+    with open(ROOT / "configs" / f"{name if '/' in name else 'ladder/' + name}.yaml") as f:
+        return yaml.safe_load(f)
+
+
+# every shipped rcnn config (ladder/1_vanilla_mlp needs the mlp model);
+# the dense head where total correlation is a loss
+SHIPPED_RCNN = (
+    ["2_conditional", "3_mals", "4_adversarial", "5_full"]
+    + [f"sane/{p.stem}" for p in sorted((ROOT / "configs" / "sane").glob("*.yaml"))]
+    + [f"sweep/{p.stem}" for p in sorted((ROOT / "configs" / "sweep").glob("*.yaml"))]
+)
+
+
+@pytest.mark.parametrize(
+    "ladder,packed", [(n, "total_correlation" not in _shipped(n)["loss"]) for n in SHIPPED_RCNN]
+)
+def test_ladder_configs_build_and_train(pair, tmp_path, ladder, packed):
+    """``data_and_model`` and ``train`` take every shipped rcnn config, its
+    data section but the data path included (so the x360 process and the
+    encoder view of configs/sane and configs/sweep), at small widths for
+    one epoch: the dense head where total correlation is a loss, else the
+    packed head; the scrubber states of its method map; every loss term of
+    the config in ``metrics.csv`` and finite."""
+    import csv
 
     from scrubvae_torch.train.trainer import train
 
-    with open(ROOT / "configs" / "ladder" / f"{ladder}.yaml") as f:
-        cfg = yaml.safe_load(f)
-    base = config(Path(pair[0]["data"]["data_path"]))
-    cfg["data"] = dict(base["data"])
+    cfg = _shipped(ladder)
+    cfg["data"]["data_path"] = pair[0]["data"]["data_path"]
     cfg["model"].update(z_dim=16, channel=[8, 8, 16, 16, 32], precision="fp32")
     cfg["train"].update(num_epochs=1, minimal_test=True, precision="fp32")
     cfg["disentangle"]["features"] = ["avg_speed_3d", "heading"]
     cfg["out_path"] = str(tmp_path)
+    methods = cfg["disentangle"].get("method") or {}
     datasets, model, info = factory.data_and_model(cfg, data_keys=TRAIN_KEYS, device="cpu")
     assert model.vae.packed_sigma == packed
+    enc = cfg["data"].get("encoder_direction_process") not in (None, cfg["data"]["direction_process"])
+    for ds in datasets.values():
+        assert ds.direction_process == cfg["data"]["direction_process"]
+        assert {"x6d_enc", "root_enc"} <= set(ds.data_keys) if enc else not {"x6d_enc", "root_enc"} & set(ds.data_keys)
     trainer = train(cfg, datasets, model, info, device="cpu")
-    assert trainer.state.adv_states.keys() == {"avg_speed_3d"}
-    assert trainer.state.scrub_state["qda"].keys() == {"ids"}
+    assert trainer.state.adv_states.keys() == set(methods.get("adversarial_net", []))
+    assert trainer.state.scrub_state.get("qda", {}).keys() == set(methods.get("qda", []))
     assert (trainer.state.mi_state is not None) == ("mcmi" in cfg["loss"])
-    import csv
 
     with open(tmp_path / "metrics.csv", newline="") as f:
         row = next(csv.DictReader(f))
     terms = {k for k in row if k.endswith("_train")}
-    assert {"avg_speed_3d_an_train", "ids_qda_train", "total_train"} <= terms
+    assert {f"{k}_train" for k in cfg["loss"]} | {"total_train"} <= terms
     assert all(np.isfinite(float(row[k])) for k in terms)
-    assert "lambda_qda_ids" in row
+    assert ("lambda_qda_ids" in row) == ("qda" in methods)
+
+
+def test_mlp_config_is_refused(pair):
+    """``configs/ladder/1_vanilla_mlp.yaml`` needs the mlp model, which the
+    port has not got yet."""
+    cfg = _shipped("1_vanilla_mlp")
+    cfg["data"]["data_path"] = pair[0]["data"]["data_path"]
+    with pytest.raises(NotImplementedError, match="rcnn model only"):
+        factory.data_and_model(cfg, data_keys=TRAIN_KEYS, device="cpu")

@@ -20,32 +20,15 @@ of the port's ``metrics.csv`` lies within ``band`` relative of the JAX
 package's; the readings are printed with ``-s``.
 """
 
-import csv
-import shutil
-from pathlib import Path
-
-import flax
-import jax
-import numpy as np
 import pytest
 import torch
-import yaml
+from _port_fit import check_bands, read_csv, run_both, write_pose_files
 
-from scrubvae_tpu.params import read as jread
-from scrubvae_tpu.train.trainer import Trainer as JaxTrainer
-from scrubvae_tpu.train.trainer import train as jax_train
 from scrubvae_torch import factory
-from scrubvae_torch.data.pose_io import write_pose_h5
-from scrubvae_torch.data.skeleton import load_skeleton
 from scrubvae_torch.data.synthetic import synthetic_pose_stream
-from scrubvae_torch.models.scrubvae import ScrubVAE
-from scrubvae_torch.params import read
-from scrubvae_torch.train.trainer import train
-from scrubvae_torch.utils.weights import from_jax_variables
 
 torch.set_num_threads(1)
 
-ROOT = Path(__file__).resolve().parent.parent
 EPOCHS = 5
 SCRUB_TERMS = ("_gr_", "_lin_", "_mals_")
 
@@ -104,59 +87,14 @@ CONFIG = {
 }
 
 
-def read_csv(path: Path):
-    with open(path, newline="") as f:
-        reader = csv.DictReader(f)
-        return list(reader.fieldnames), list(reader)
-
-
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    jax.config.update("jax_default_matmul_precision", "highest")
     root = tmp_path_factory.mktemp("fit")
-    data = root / "data"
-    skel = load_skeleton(ROOT / "configs" / "mouse_skeleton.yaml")
-    (data / "synthetic").mkdir(parents=True)
-    shutil.copy(ROOT / "configs" / "mouse_skeleton.yaml", data / "mouse_skeleton.yaml")
     # one step an epoch; the val split is a tail alone
-    for split, seed, n, k in (("train", 0, 100, 1), ("val", 1, 70, 1)):
-        pose, ids = synthetic_pose_stream(skel, n_frames=n, n_ids=k, seed=seed)
-        write_pose_h5(data / "synthetic" / split / "pose.h5", pose, ids)
-    cfg = dict(CONFIG, data=dict(CONFIG["data"], data_path=str(data) + "/"))
-    paths = {}
-    for side in ("jax", "port"):
-        paths[side] = root / "runs" / side
-        paths[side].mkdir(parents=True)
-        with open(paths[side] / "model_config.yaml", "w") as f:
-            yaml.safe_dump(cfg, f)
-
-    # the JAX package's initial weights, taken when its train() starts fit
-    captured = {}
-    jax_fit = JaxTrainer.fit
-
-    def fit_from_known_weights(self, num_epochs=None):
-        captured["weights"] = from_jax_variables({
-            k: np.array(v) for k, v in flax.traverse_util.flatten_dict(
-                {"params": self.state.params, "batch_stats": self.state.batch_stats}, sep="/"
-            ).items()
-        })
-        return jax_fit(self, num_epochs)
-
-    original = factory.init_weights
-
-    def carried(module, seed):
-        """The JAX initial weights; the GR re-init keeps the port's own."""
-        if isinstance(module, ScrubVAE):
-            module.load_state_dict(captured["weights"], strict=True)
-        else:
-            original(module, seed)
-
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(JaxTrainer, "fit", fit_from_known_weights)
-        mp.setattr(factory, "init_weights", carried)
-        jax_train(jread.config(paths["jax"] / "model_config.yaml"))
-        trainer = train(read.config(paths["port"] / "model_config.yaml"), device="cpu")
-    return paths, trainer
+    data = write_pose_files(
+        root / "data", synthetic_pose_stream, (("train", 0, 100, 1), ("val", 1, 70, 1))
+    )
+    return run_both(root, dict(CONFIG, data=dict(CONFIG["data"], data_path=str(data) + "/")))
 
 
 def test_metrics_csv_columns_match(runs):
@@ -168,20 +106,7 @@ def test_metrics_csv_columns_match(runs):
 
 
 def test_losses_within_band_per_epoch(runs):
-    paths, _ = runs
-    _, jrows = read_csv(paths["jax"] / "metrics.csv")
-    _, rows = read_csv(paths["port"] / "metrics.csv")
-    worst = {}
-    for jr, r in zip(jrows, rows):
-        for k, v in jr.items():
-            if k in ("epoch", "time") or v == "":
-                continue
-            rel = abs(float(r[k]) - float(v)) / max(abs(float(v)), 1e-12)
-            print(f"epoch {jr['epoch']} {k}: port {float(r[k]):.6g} JAX {float(v):.6g} rel {rel:.3e}")
-            worst[k] = max(worst.get(k, 0.0), rel)
-            assert np.isfinite(float(r[k])), (jr["epoch"], k)
-            assert rel <= band(int(jr["epoch"]), k), (jr["epoch"], k, float(r[k]), float(v), rel)
-    print("worst relative gap per column:", {k: f"{v:.3e}" for k, v in worst.items()})
+    check_bands(runs[0], band)
 
 
 def test_epoch5_weights_written(runs):

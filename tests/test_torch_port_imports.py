@@ -20,7 +20,7 @@ def test_importing_every_module_pulls_in_no_jax():
     for m in (
         "ops.fused_adamw", "train.trainer", "params.read", "params.param_keys", "evals.restrictiveness",
         "train_model", "utils.checkpoint", "utils.logging", "data.pose_io", "evals.metrics", "evals.probes",
-        "evals.latents",
+        "evals.latents", "bench",
     ):
         assert "scrubvae_torch." + m in mods, m
     code = (
@@ -118,6 +118,21 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked_for(monkeypatch):
         Trainer(cfg, {"train": ds}, model, info)
     trainer = Trainer(cfg, {"train": ds}, model, info, device="cpu")
     assert np.isfinite(trainer.train_epoch(1, np.arange(8).reshape(2, 4))["total"])
+
+
+def test_bench_needs_a_gpu_unless_cpu_is_asked_for(monkeypatch):
+    """``python -m scrubvae_torch.bench`` runs on the card by default and
+    raises before building anything when there is none; ``--device cpu``
+    is the only way onto the CPU."""
+    from scrubvae_torch import bench
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    small = ["--small", "--steps", "1", "--warmup", "0"]
+    assert bench.parse_args(small).device == "cuda"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench.run(bench.parse_args(small))
+    out = bench.run(bench.parse_args(small + ["--device", "cpu"]))
+    assert out["device_kind"] == "cpu" and np.isfinite(out["total"])
 
 
 def test_bare_cuda_resolves_to_the_current_device_index(monkeypatch):
