@@ -121,6 +121,36 @@ Phases (each one fails the run on error; nothing is caught and swallowed):
    ``fit``, the epoch, validation and decodability times and the peak
    memory beside the card's name.
 
+11. models: the mlp and transformer model families and the scrubber
+   branches no shipped config uses. First ``configs/ladder/1_vanilla_mlp.yaml``
+   at its own widths (z 16, hidden 256-128, batch 64) on the x360 runs'
+   structured splits, as those runs go (epochs 4 and 5, validation with
+   decodability at 5). Then steps 1 and 2 on the card against the CPU of the
+   flagship's method map on the transformer, and of the branches' method
+   map on the rcnn, at z 16, window 51, f32, without clip, dropout off
+   (batch 16, and 32 for the branches, whose least-squares system needs
+   more rows than its 17 columns), held to ``scrubvae_torch.train.parity``.
+   Then the flagship's config with ``model: {type: transformer, z_dim: 128,
+   window: 51, diag: false}`` (4 heads, ``ff_size`` 512, 4 layers, gelu;
+   batch 512, bf16 storage; linear, MALS and gradient-reversal scrubbers on
+   avg_speed_3d, decoding conditional on avg_speed_3d and heading) and the
+   flagship rcnn with every branch (MALS at polynomial 2 on avg_speed_3d,
+   direct least squares on heading with a negative weight, gradient
+   reversal on the ids under ``gr_legacy_norm``, the moving-average class
+   means of the ids), each through ``params.read.config`` and
+   ``train(config, datasets, model, info)`` on the fit phase's splits for
+   epochs 16 to 20 (validation, decodability and the full state at 20).
+   Every loss column finite at every epoch, the validation losses and
+   decodability finite at 20, 2 optimizer launches a step, each run's leaf
+   table bitwise against the plain version. For the transformer, its dropout
+   at the 0.1 rate on one flagship batch (the kept share of each residual
+   and positional mask within 0.005 of 0.9, kept entries scaled by 1/0.9,
+   one attention mask for the whole batch and every head, no mask drawn in
+   eval mode or by the eval step), then its epoch 21 against a resume from
+   epoch 20, bit for bit (the dropout masks' generator included). Prints
+   each run's step time inside ``fit``, the epoch, validation and
+   decodability times and the peak memory beside the card's name.
+
 Prints one JSON line describing the kernels, the card's name and power limit
 again, then, as its last line, the device record. Needs one CUDA GPU and
 ``nvcc``; exits non-zero without them.
@@ -147,7 +177,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
 ADAMW_FLOPS_PER_ELEM = 20
 ROOT = pathlib.Path(__file__).resolve().parent
-PHASES = ("kernel", "parity", "path", "fit", "full", "bench", "x360")
+PHASES = ("kernel", "parity", "path", "fit", "full", "bench", "x360", "models")
 DEVICE = "cuda"
 
 
@@ -348,12 +378,20 @@ def _outer_hyper():
     return scal, hyper, t
 
 
+# what a training run reports of its leaf set's check
+LEAF_SET_KEYS = (
+    "leaves", "elements", "launches_per_call", "pass_ms", "pass_device_ms", "pass_plain_ms", "pass_bound_ms",
+    "pass_library_ms",
+)
+
+
 def leaf_set_check(trainer, scal, hyper, t, label: str = "flagship") -> dict:
     """A trainer's whole leaf set (its parameters' shapes and dtypes, its
     moments' dtypes, random values) in one multi-tensor call on the Philox
     path, bitwise against the plain version leaf by leaf; then the pass's
-    device time beside its bound and ``torch._fused_adamw_`` over f32
-    copies of every leaf."""
+    time (CUDA events around 20 calls) and device time (profiler) beside
+    its bound, the plain version's time and ``torch._fused_adamw_`` over
+    f32 copies of every leaf."""
     from scrubvae_torch.ops import fused_adamw as fa
 
     params = list(trainer.model.parameters())
@@ -388,6 +426,12 @@ def leaf_set_check(trainer, scal, hyper, t, label: str = "flagship") -> dict:
         "leaves": len(ws), "elements": n, "launches_per_call": len(table.batches),
         "bitwise_philox": True, "max_abs_err": err, "bytes": bytes_moved,
         "pass_ms": cuda_ms(lambda: fa.fused_adamw_multi(table, gs, scal, seed=seed, step=t, **hyper)),
+        "pass_device_ms": device_ms(lambda: fa.fused_adamw_multi(table, gs, scal, seed=seed, step=t, **hyper)),
+        "pass_plain_ms": cuda_ms(
+            lambda: fa.fused_adamw_multi_reference(
+                ws, gs, mus, nus, lr=lr, b1c=b1c, b2c=b2c, gscale=gscale, seed=seed, step=t, **hyper
+            )
+        ),
     }
     rec["pass_bound_ms"], rec["bound_by"] = _bound(bytes_moved, n)
     f32 = [[x.float() for x in xs] for xs in (ws, gs, mus, nus)]
@@ -667,6 +711,7 @@ def _trainer_state(trainer) -> dict:
         "steps": (st.opt_state.step, st.step),
         "mals": [getattr(mals, f).clone() for f in MALS_FIELDS],
         "generator": st.generator.get_state().clone(),
+        "np_rng": repr(trainer.np_rng.bit_generator.state),
     }
 
 
@@ -685,6 +730,8 @@ def _same_state(a: dict, b: dict) -> list:
         bad.append("steps")
     if not torch.equal(a["generator"], b["generator"]):
         bad.append("generator")
+    if a["np_rng"] != b["np_rng"]:
+        bad.append("np_rng")
     return bad
 
 
@@ -1229,7 +1276,6 @@ def _full_state(trainer) -> dict:
         adv=[p.detach().clone() for p in adv.net.parameters()] + [m.clone() for m in adv.opt_state.mu + adv.opt_state.nu],
         mi=[getattr(st.mi_state, f).clone() for f in parity.MI_KEYS],
         adv_counts=(adv.opt_state.count.clone(), adv.opt_state.step),
-        np_rng=repr(trainer.np_rng.bit_generator.state),
     )
     return out
 
@@ -1242,8 +1288,6 @@ def _same_full_state(a: dict, b: dict) -> list:
     ]
     if not torch.equal(a["adv_counts"][0], b["adv_counts"][0]) or a["adv_counts"][1] != b["adv_counts"][1]:
         bad.append("adv_counts")
-    if a["np_rng"] != b["np_rng"]:
-        bad.append("np_rng")
     return bad
 
 
@@ -1485,7 +1529,7 @@ def x360_windows_card_vs_cpu() -> dict:
     return rec
 
 
-def _x360_run(name: str, arrays: dict, card: str) -> dict:
+def _shipped_run(name: str, arrays: dict, card: str) -> dict:
     """``configs/{name}.yaml`` (its widths, batch and precision) through
     ``params.read.config``, ``factory.data_and_model`` and ``train(config,
     datasets, model, info)`` for 2 epochs on ``arrays``, validating with
@@ -1514,7 +1558,8 @@ def _x360_run(name: str, arrays: dict, card: str) -> dict:
         )
         factory.read_pose_h5 = lambda path: arrays[pathlib.Path(path).parent.name]
         datasets, model, info = factory.data_and_model(
-            config, data_keys=tuple(["x6d", "root", "offsets", "target_pose"] + config["disentangle"]["features"]),
+            config,
+            data_keys=tuple(["x6d", "root", "offsets", "target_pose"] + list(config["disentangle"]["features"] or [])),
             device=DEVICE,
         )
         factory.read_pose_h5 = read_pose_h5
@@ -1548,8 +1593,6 @@ def _x360_run(name: str, arrays: dict, card: str) -> dict:
             inner_adamw_check(a, label=f"{name} discriminator {k}") for k, a in trainer.state.adv_states.items()
         ]
         view = all(set(ENC_KEYS) <= set(ds.data_keys) for ds in datasets.values())
-        if view != (name == "sweep/8_structural") or datasets["train"].direction_process != "x360":
-            raise AssertionError(f"{name}: direction process {datasets['train'].direction_process}, view {view}")
         with open(run / "metrics.csv", newline="") as f:
             rows = list(csv.DictReader(f))
         if [int(r["epoch"]) for r in rows] != list(range(X360_START + 1, X360_EPOCHS + 1)):
@@ -1570,18 +1613,19 @@ def _x360_run(name: str, arrays: dict, card: str) -> dict:
             "val_windows": len(datasets["val"]), "batch": trainer.batch_size,
             "channels": config["model"]["channel"], "z_dim": int(config["model"]["z_dim"]),
             "precision": config["train"]["precision"], "encoder_view": view,
+            "direction_process": datasets["train"].direction_process, "model": config["model"]["type"],
             "steps_per_epoch": trainer.steps_per_epoch, "fit_s": fit_s,
             "train_epoch_ms": epoch_ms, "step_ms": epoch_ms / trainer.steps_per_epoch,
             "val_epoch_ms": timer.mean_ms("val_epoch"), "decodability_ms": timer.mean_ms("decodability"),
             "peak_mem_gib": peak_gib, "optimizer_launches": launches, "launches_per_step": launches / steps,
             "inner_launches_per_step": inner,
-            "leaf_sets": [{k: c[k] for k in ("leaves", "elements", "launches_per_call")} for c in checks],
+            "leaf_sets": [{k: c[k] for k in LEAF_SET_KEYS if k in c} for c in checks],
             "kernel_max_abs_err": max(c["max_abs_err"] for c in checks),
             "total_train": [float(r["total_train"]) for r in rows],
             "validation": {k: float(last[k]) for k in tests},
             "decodability": {k: float(last[k]) for k in DECOD_COLUMNS},
         }
-        log(f"x360 {name} train entry point: " + json.dumps(rec))
+        log(f"{name} train entry point: " + json.dumps(rec))
         return rec
     finally:
         factory.read_pose_h5 = read_pose_h5
@@ -1598,9 +1642,449 @@ def x360_phase(card: str) -> dict:
     arrays = {split: _structured(split)[1:] for split in X360_SPLITS}
     runs = {}
     for name in X360_RUNS:
-        runs[name] = _x360_run(name, arrays, card)
+        runs[name] = rec = _shipped_run(name, arrays, card)
+        if rec["encoder_view"] != (name == "sweep/8_structural") or rec["direction_process"] != "x360":
+            raise AssertionError(f"{name}: direction process {rec['direction_process']}, view {rec['encoder_view']}")
         torch.cuda.empty_cache()
     return {"windows": windows, "card_vs_cpu": step, "runs": runs}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the mlp and transformer model families and the scrubber branches
+# ---------------------------------------------------------------------------
+
+MLP_CONFIG = "ladder/1_vanilla_mlp"
+TRANSFORMER = {"type": "transformer", "z_dim": 128, "window": 51, "diag": False}
+# the transformer and branches runs train epochs 16 to 20 (model.start_epoch
+# 15, nothing loaded): validation, decodability and the full state at 20
+MODELS_START, MODELS_EPOCHS = 15, 20
+# every branch this phase adds: MALS at polynomial 2, direct least squares
+# with its bias column (a negative weight), gradient reversal on the ids
+# under gr_legacy_norm and the moving-average class means of the ids
+BRANCHES_METHODS = {
+    "conditional": ["avg_speed_3d", "heading"],
+    "moving_avg_lsq": ["avg_speed_3d"],
+    "direct_lsq": ["heading"],
+    "grad_reversal": ["ids"],
+    "moving_avg": ["ids"],
+}
+BRANCHES_LOSS = {
+    "rotation": 1.0, "prior": 0.001, "root": 0.01, "jpe": 1.0,
+    "avg_speed_3d_mals": 0.1, "heading_lsq": -0.1, "ids_gr": 1.0, "ids_ma": 0.1,
+}
+# card against CPU: z 16, window 51, f32, no clip; batch 16, and 32 for the
+# branches, whose least-squares system of 16 latents and the bias column
+# needs more rows than columns
+MODELS_PARITY_Z = 16
+# the residual and positional dropout masks keep 0.9 of the entries within
+# this over the flagship batch
+KEPT_SHARE_TOL = 5e-3
+
+
+def _models_config(out: pathlib.Path, batch: int, z_dim: int, ch, bf16_params: bool, model: dict = None,
+                   branches: bool = False, precision: str = "bf16", **train) -> dict:
+    """The flagship's config (``bench.bench_config``) with ``model`` and
+    ``train`` entries overridden, and with the branches' method map and
+    losses when ``branches``; writes to ``out``."""
+    from scrubvae_torch import bench
+
+    cfg = bench.bench_config(batch, 51, z_dim, ch, bf16_params, precision=precision)
+    cfg["model"].update(model or {})
+    cfg["train"].update(train)
+    if branches:
+        cfg["disentangle"].update(method=BRANCHES_METHODS, polynomial=2, gr_legacy_norm=True)
+        cfg["loss"] = dict(BRANCHES_LOSS)
+    cfg["out_path"] = str(out)
+    return cfg
+
+
+def _no_dropout(model) -> None:
+    from scrubvae_torch.models import transformer as tr
+
+    for m in model.modules():
+        if isinstance(m, tr._Dropping):
+            m.dropout = 0.0
+
+
+def _models_parity_run(device: str, config: dict, rows: np.ndarray, eps: list) -> dict:
+    """Two steps of ``config`` on ``device`` from the seed's weights (drawn
+    on the CPU) with the given rows and noise, dropout off; the initial
+    weights, step 1's gradients, weights and streaming states and both
+    steps' losses, on the CPU; on the CPU also step 1's gradients in
+    float64 (``parity.grads_float64``)."""
+    from scrubvae_torch import bench, factory
+    from scrubvae_torch.data.dataset import StreamDataset
+    from scrubvae_torch.data.pipeline import build_frame_store
+    from scrubvae_torch.data.skeleton import load_skeleton
+    from scrubvae_torch.data.synthetic import synthetic_pose_stream
+    from scrubvae_torch.train import parity
+    from scrubvae_torch.train.trainer import Trainer
+
+    skel = load_skeleton(ROOT / "configs" / "mouse_skeleton.yaml")
+    pose, ids = synthetic_pose_stream(skel, n_frames=4096, n_ids=4, seed=0)
+    ds = StreamDataset(
+        build_frame_store(pose, ids, skel, window=51, stride=2, device=device), skel, bench.KEYS, "midfwd",
+        arena_size=bench.ARENA, discrete_classes={"ids": np.unique(ids)}, device=device,
+    )
+    model, info = factory.build_model(
+        config["model"], config["disentangle"], 18, "midfwd", arena_size=bench.ARENA,
+        discrete_classes=ds.discrete_classes, loss_keys=config["loss"].keys(), device=device,
+    )
+    _no_dropout(model)
+    trainer = Trainer(config, {"train": ds}, model, info, device=device)
+    names = [n for n, _ in trainer.model.named_parameters()]
+    keys = {"moving_avg_lsq": parity.MALS_KEYS, "moving_avg": parity.MA_KEYS}
+
+    def cpu(t):
+        return t.detach().to("cpu", copy=True)
+
+    out = {"losses": [], "w0": {n: cpu(p) for n, p in trainer.model.named_parameters()}}
+    if device == "cpu":
+        out["grads64"] = parity.grads_float64(trainer, torch.as_tensor(rows[0] % len(ds)), torch.from_numpy(eps[0]))
+    for s in range(2):
+        trainer.state, metrics = trainer.train_step(
+            trainer.state, torch.as_tensor(rows[s] % len(ds), device=device), trainer.loss_scale_for_epoch(1),
+            eps=torch.from_numpy(eps[s]).to(device),
+        )
+        out["losses"].append({k: float(v) for k, v in metrics.items()})
+        if s == 0:
+            st = trainer.state
+            out["grads"] = {n: cpu(m) / (1.0 - trainer.tx.b1) for n, m in zip(names, st.opt_state.mu)}
+            out["w1"] = {n: cpu(p) for n, p in trainer.model.named_parameters()}
+            out["states"] = {
+                (method, feat): {k: cpu(getattr(state, k)) for k in keys[method]}
+                for method in keys for feat, state in st.scrub_state.get(method, {}).items()
+            }
+    return out
+
+
+def models_parity(label: str, model: dict, batch: int, branches: bool = False) -> dict:
+    """Steps 1 and 2 on the card against the CPU at z 16, window 51, f32,
+    without clip, with injected noise and dropout off on both sides: step 1
+    held to ``scrubvae_torch.train.parity`` (losses 1e-4, gradients, weights
+    to four ulps as the full stack's step, given both runs' gradients for
+    the elements near Adam's eps and the CPU's float64 gradient as the
+    witness of where the CPU's own f32 gradient has an unsure sign, the MALS and
+    moving-average states 1e-4), step 2's losses at rtol 1e-2. The card
+    runs with deterministic algorithms."""
+    from scrubvae_torch import bench
+    from scrubvae_torch.train import parity
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_models_parity_"))
+    try:
+        config = _models_config(
+            tmp, batch, MODELS_PARITY_Z, bench.SMALL_CH, False, model=model, branches=branches, precision="fp32",
+            moment_dtype="f32",
+        )
+        rng = np.random.default_rng(7)
+        rows = rng.integers(0, 1 << 20, (2, batch))
+        eps = [rng.standard_normal((batch, MODELS_PARITY_Z)).astype(np.float32) for _ in range(2)]
+        cpu = _models_parity_run("cpu", config, rows, eps)
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True)
+        try:
+            card = _models_parity_run(DEVICE, config, rows, eps)
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = False
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def states(tol):
+        worst = 0.0
+        for (method, feat), want in cpu["states"].items():
+            check = parity.check_mals if method == "moving_avg_lsq" else parity.check_ma
+            worst = max(worst, check(want, card["states"][(method, feat)], tol))
+        return worst
+
+    checks = {
+        "max_loss_rel_step1": lambda: parity.check_losses(cpu["losses"][0], card["losses"][0], 1e-4),
+        "grads": lambda: parity.check_grads(cpu["grads"], card["grads"]),
+        "weights": lambda: parity.check_weights(
+            cpu["w1"], card["w1"], cpu["grads"], ulps=4, got_grads=card["grads"], unsure=unsure,
+        ),
+        "max_state_rel": lambda: states(1e-4),
+        "max_loss_rel_step2": lambda: parity.check_losses(cpu["losses"][1], card["losses"][1], 1e-2),
+    }
+    unsure = parity.sign_unsure(cpu["grads"], cpu["grads64"])
+    rec = {
+        "run": label, "batch": batch, "z_dim": MODELS_PARITY_Z, "states": sorted(f"{m}/{f}" for m, f in cpu["states"]),
+        "sign_unsure_elements": int(sum(int(m.sum()) for m in unsure.values())),
+    }
+    failed = {}
+    for name, check in checks.items():
+        # every check runs, so one call shows all that differs
+        try:
+            got = check()
+        except AssertionError as e:
+            failed[name] = str(e)
+            continue
+        rec.update(got if isinstance(got, dict) else {name: got})
+    if failed:
+        raise AssertionError(f"models {label}: card against CPU: {json.dumps(failed)}; readings {json.dumps(rec)}")
+    rec["planted_sign_error_caught"] = planted_sign_error(cpu, card, unsure)
+    log(f"models {label} card against CPU, steps 1 and 2: " + json.dumps(rec))
+    return rec
+
+
+def planted_sign_error(cpu: dict, card: dict, unsure: dict) -> str:
+    """The card's step-1 update of its largest leaf with the sign reversed
+    in the noise band of the CPU's gradient, where each element alone is
+    excused: the weights' check of ``models_parity`` must raise on the
+    flips' count. Returns the leaf."""
+    from scrubvae_torch.train import parity
+
+    n = max(cpu["w1"], key=lambda k: cpu["w1"][k].numel())
+    g = cpu["grads"][n]
+    band = g.abs() < 5e-2 * torch.sqrt(torch.mean(g * g))
+    faulty = dict(card["w1"])
+    faulty[n] = torch.where(band, 2 * card["w0"][n] - card["w1"][n], card["w1"][n])
+    try:
+        parity.check_weights(cpu["w1"], faulty, cpu["grads"], ulps=4, got_grads=card["grads"], unsure=unsure)
+    except AssertionError as e:
+        if "weights differ after step 1" in str(e):
+            return n
+        raise
+    raise AssertionError(f"a sign error in the noise band of {n} ({int(band.sum())} elements) passed the weights' check")
+
+
+def dropout_statistics(trainer, batch: dict) -> dict:
+    """The transformer's dropout at its 0.1 rate on one flagship batch, in
+    training mode with a generator of its own: every residual and
+    positional mask keeps 0.9 of the nonzero entries within
+    ``KEPT_SHARE_TOL`` and scales the kept ones by 1/0.9 (bitwise as the
+    division on the card computes it); every attention mask is one (q, kv)
+    mask for the whole batch and every head, scaling by 1/0.9 within one
+    f32 ulp. Then neither an eval-mode forward (twice, bitwise equal) nor
+    the eval step draws a mask."""
+    from scrubvae_torch.models import transformer as tr
+
+    calls = {"dropout": [], "attention": []}
+    saved = (tr.dropout, tr.attention_dropout)
+
+    def residual(x, rate, generator):
+        out = saved[0](x, rate, generator)
+        nonzero, kept = x != 0, out != 0
+        calls["dropout"].append({
+            "shape": list(x.shape), "rate": rate, "kept_share": float(kept[nonzero].float().mean()),
+            "scaled": bool(torch.equal(out[kept], (x / (1.0 - rate))[kept])),
+        })
+        return out
+
+    def attention(w, rate, generator):
+        out = saved[1](w, rate, generator)
+        kept = out != 0
+        scale = (out[kept] - w[kept] / (1.0 - rate)).abs() / (w[kept] / (1.0 - rate)).abs()
+        calls["attention"].append({
+            "shape": list(w.shape), "rate": rate, "kept_share": float(kept[:1, :1].float().mean()),
+            "shared": bool(torch.equal(kept, kept[:1, :1].expand_as(kept))),
+            "max_scale_rel": float(scale.max()),
+        })
+        return out
+
+    model = trainer.model
+    B = batch["x6d"].shape[0]
+    try:
+        tr.dropout, tr.attention_dropout = residual, attention
+        model.train()
+        with torch.no_grad():
+            model(batch, eps=torch.zeros(B, model.vae.z_dim, device=DEVICE),
+                  generator=torch.Generator(device=DEVICE).manual_seed(0))
+        train_calls = {k: list(v) for k, v in calls.items()}
+        calls["dropout"].clear()
+        calls["attention"].clear()
+        model.eval()
+        with torch.no_grad():
+            e1, e2 = (model(batch)["x6d"] for _ in range(2))
+        idx = torch.arange(B, device=DEVICE)
+        trainer.eval_step(trainer.state, idx, trainer.loss_scale_for_epoch(MODELS_EPOCHS), data=batch,
+                          generator=torch.Generator(device=DEVICE).manual_seed(1))
+    finally:
+        tr.dropout, tr.attention_dropout = saved
+    n_layers = len(model.vae.encoder.transformer_encoder.layers)
+    want = (2 + 2 * n_layers + 3 * n_layers, 3 * n_layers)
+    shares = [c["kept_share"] for c in train_calls["dropout"]]
+    rec = {
+        "residual_positional_masks": len(train_calls["dropout"]), "attention_masks": len(train_calls["attention"]),
+        "kept_share_min": min(shares), "kept_share_max": max(shares),
+        "attention_kept_share": [c["kept_share"] for c in train_calls["attention"]],
+        "attention_max_scale_rel": max(c["max_scale_rel"] for c in train_calls["attention"]),
+        "eval_masks": len(calls["dropout"]) + len(calls["attention"]), "eval_bitwise_repeat": bool(torch.equal(e1, e2)),
+    }
+    bad = []
+    if (rec["residual_positional_masks"], rec["attention_masks"]) != want:
+        bad.append(f"{want} masks expected")
+    bad += [c for c in train_calls["dropout"] if c["rate"] != 0.1 or not c["scaled"] or abs(c["kept_share"] - 0.9) > KEPT_SHARE_TOL]
+    bad += [c for c in train_calls["attention"] if c["rate"] != 0.1 or not c["shared"] or c["max_scale_rel"] > 1.2e-7]
+    if rec["eval_masks"] or not rec["eval_bitwise_repeat"]:
+        bad.append("dropout in eval mode")
+    if bad:
+        raise AssertionError(f"models transformer dropout: {bad}; readings {json.dumps(rec)}")
+    log("models transformer dropout at 0.1: " + json.dumps(rec))
+    return rec
+
+
+def _models_run(label: str, config: dict, datasets: dict, card: str, transformer: bool = False) -> dict:
+    """``config`` through ``params.read.config`` and ``train(config,
+    datasets, model, info)`` on the fit phase's splits for epochs 16 to 20
+    (validation, decodability and the full state at 20): every loss column
+    finite at every epoch, the validation losses and decodability finite at
+    20, the optimizer's launches a step equal to its table's dtype
+    variants (2), and its leaf table bitwise against the plain version
+    (``leaf_set_check``). For the ``transformer``, the dropout statistics on
+    one flagship batch (``dropout_statistics``), then the run's own epoch 21
+    against a resume from epoch 20 with deterministic algorithms: the
+    restored state and the epoch-21 state bit for bit, the dropout
+    generator's included."""
+    import csv
+
+    import yaml
+
+    from scrubvae_torch import bench, factory
+    from scrubvae_torch.ops import fused_adamw as fa
+    from scrubvae_torch.params import read
+    from scrubvae_torch.train import trainer as trainer_mod
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_models_"))
+    timer = _Timer()
+    try:
+        def read_config(run, **model):
+            cfg = dict(config, out_path="current")
+            cfg["model"] = dict(config["model"], **model)
+            run.mkdir(parents=True)
+            (run / "model_config.yaml").write_text(yaml.safe_dump(cfg))
+            return read.config(run / "model_config.yaml")
+
+        run = tmp / "run"
+        cfg = read_config(run, start_epoch=MODELS_START)
+
+        def build():
+            return factory.build_model(
+                cfg["model"], cfg["disentangle"], n_keypts=18, direction_process="midfwd",
+                arena_size=bench.ARENA, discrete_classes=datasets["train"].discrete_classes,
+                loss_keys=cfg["loss"].keys(), device=DEVICE,
+            )
+
+        model, info = build()
+        for owner, name, tag in (
+            (trainer_mod.Trainer, "train_epoch", "train_epoch"),
+            (trainer_mod.Trainer, "test_epoch", "val_epoch"),
+            (trainer_mod.Trainer, "decodability_metrics", "decodability"),
+        ):
+            timer.wrap(owner, name, tag)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.fused_adamw_multi.launches = 0
+        fa.fused_adamw_leaf.launches = 0
+        t0 = time.perf_counter()
+        trainer = trainer_mod.train(cfg, datasets, model, info, device=DEVICE)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = fa.fused_adamw_multi.launches + fa.fused_adamw_leaf.launches
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        timer.undo()
+        at20 = _trainer_state(trainer) if transformer else None
+
+        epochs = MODELS_EPOCHS - MODELS_START
+        steps = trainer.steps_per_epoch * epochs
+        per_step = len(trainer.state.opt_state.table.batches)
+        if per_step != 2 or launches != per_step * steps:
+            raise AssertionError(f"models {label}: {launches} optimizer launches in {steps} steps; expected 2 a step")
+        check = leaf_set_check(trainer, *_outer_hyper(), label=f"models {label}")
+        with open(run / "metrics.csv", newline="") as f:
+            rows = list(csv.DictReader(f))
+        if [int(r["epoch"]) for r in rows] != list(range(MODELS_START + 1, MODELS_EPOCHS + 1)):
+            raise AssertionError(f"models {label}: metrics.csv epochs {[r['epoch'] for r in rows]}")
+        last = rows[-1]
+        loss_cols = [f"{k}_train" for k in cfg["loss"]] + ["total_train"]
+        tests = [k for k in last if k.endswith("_test")]
+        bad = [(r["epoch"], k, r.get(k)) for r in rows for k in loss_cols if not (r.get(k) and math.isfinite(float(r[k])))]
+        bad += [(k, last.get(k)) for k in tests + list(DECOD_COLUMNS) if not (last.get(k) and math.isfinite(float(last[k])))]
+        bad += [k for k in last if k.endswith("_nanfolds")]
+        if bad or not tests:
+            raise AssertionError(f"models {label}: metrics.csv columns not finite or missing: {bad}")
+        if sorted(p.name for p in (run / "checkpoints").iterdir()) != ["epoch_20.pt"]:
+            raise AssertionError(f"models {label}: the full state at epoch 20 expected")
+        epoch_ms = timer.mean_ms("train_epoch")
+        rec = {
+            "run": label, "card": card, "model": cfg["model"]["type"], "epochs": epochs,
+            "train_windows": len(datasets["train"]), "val_windows": len(datasets["val"]), "batch": trainer.batch_size,
+            "z_dim": int(cfg["model"]["z_dim"]), "param_dtype": cfg["train"]["param_dtype"],
+            "methods": sorted(cfg["disentangle"]["method"]), "steps_per_epoch": trainer.steps_per_epoch,
+            "fit_s": fit_s, "train_epoch_ms": epoch_ms, "step_ms": epoch_ms / trainer.steps_per_epoch,
+            "val_epoch_ms": timer.mean_ms("val_epoch"), "decodability_ms": timer.mean_ms("decodability"),
+            "peak_mem_gib": peak_gib, "optimizer_launches": launches, "launches_per_step": launches / steps,
+            "leaf_set": {k: check[k] for k in LEAF_SET_KEYS},
+            "kernel_max_abs_err": check["max_abs_err"],
+            "loss_train": {k: [float(r[k]) for r in rows] for k in loss_cols},
+            "validation": {k: float(last[k]) for k in tests},
+            "decodability": {k: float(last[k]) for k in DECOD_COLUMNS},
+        }
+        if transformer:
+            rec["dropout"] = dropout_statistics(trainer, datasets["train"].batch(torch.arange(512, device=DEVICE)))
+            torch.backends.cudnn.deterministic = True
+            torch.use_deterministic_algorithms(True)
+            try:
+                trainer.start_epoch = MODELS_EPOCHS
+                trainer.fit(MODELS_EPOCHS + 1)
+                at21 = _trainer_state(trainer)
+                del trainer
+                resume_cfg = read_config(tmp / "resume", load_model=str(run), start_epoch=MODELS_EPOCHS)
+                resume_cfg["train"]["num_epochs"] = MODELS_EPOCHS + 1
+                model, info = build()
+                resumed = trainer_mod.Trainer(resume_cfg, datasets, model, info, device=DEVICE)
+                bad = _same_state(_trainer_state(resumed), at20)
+                if bad:
+                    raise AssertionError(f"models {label}: the state restored at epoch {MODELS_EPOCHS} differs in {bad}")
+                resumed.fit()
+                bad = _same_state(_trainer_state(resumed), at21)
+                if bad:
+                    raise AssertionError(f"models {label}: epoch {MODELS_EPOCHS + 1} after the resume differs in {bad}")
+            finally:
+                torch.use_deterministic_algorithms(False)
+                torch.backends.cudnn.deterministic = False
+            rec["resume_bitwise_equal"] = True
+        log(f"models {label} train entry point: " + json.dumps(rec))
+        return rec
+    finally:
+        timer.undo()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def models_phase(card: str) -> dict:
+    """The mlp and transformer model families and the scrubber branches
+    (see the module docstring)."""
+    from scrubvae_torch import bench
+
+    arrays = {split: _structured(split)[1:] for split in X360_SPLITS}
+    runs = {"mlp": _shipped_run(MLP_CONFIG, arrays, card)}
+    if runs["mlp"]["model"] != "mlp" or runs["mlp"]["launches_per_step"] != 2:
+        raise AssertionError(f"models mlp: {runs['mlp']['model']} model, {runs['mlp']['launches_per_step']} launches a step")
+    torch.cuda.empty_cache()
+    parity_recs = {
+        "transformer": models_parity("transformer", {"type": "transformer"}, 16),
+        "branches": models_parity("branches", {}, 32, branches=True),
+    }
+    datasets = _fit_splits()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_models_cfg_"))
+    try:
+        configs = {
+            "transformer": _models_config(
+                tmp, 512, 128, bench.FULL_CH, True, model=dict(TRANSFORMER), num_epochs=MODELS_EPOCHS,
+                eval_start_epoch=0, minimal_test=None,
+            ),
+            "branches": _models_config(
+                tmp, 512, 128, bench.FULL_CH, True, branches=True, num_epochs=MODELS_EPOCHS,
+                eval_start_epoch=0, minimal_test=None,
+            ),
+        }
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    runs["transformer"] = _models_run("transformer", configs["transformer"], datasets, card, transformer=True)
+    torch.cuda.empty_cache()
+    runs["branches"] = _models_run("branches", configs["branches"], datasets, card)
+    torch.cuda.empty_cache()
+    return {"runs": runs, "card_vs_cpu": parity_recs}
 
 
 # ---------------------------------------------------------------------------
@@ -1608,7 +2092,7 @@ def x360_phase(card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def kernels_line(kernel: dict, path: dict, fit: dict, full: dict, bench: dict, x360: dict) -> dict:
+def kernels_line(kernel: dict, path: dict, fit: dict, full: dict, bench: dict, x360: dict, models: dict) -> dict:
     """One record per kernel of the main path: its launches on the path run
     and, at the fc_sigma shape, its time beside the plain version's, the
     bound and the library call's, for the f32 variant (where
@@ -1619,11 +2103,13 @@ def kernels_line(kernel: dict, path: dict, fit: dict, full: dict, bench: dict, x
     and the full phase's launches, with the discriminator's inner pass (the
     f32 variant over its 22 leaves) beside its bound, the plain version's
     and ``torch._fused_adamw_``'s time; and the launches of the bench's run
-    and of each x360 training run with its leaf tables' agreement with the
-    plain version. ``max_abs_err`` is the largest of every check's."""
+    and of each x360 and models training run with its leaf tables'
+    agreement with the plain version. ``max_abs_err`` is the largest of
+    every check's."""
     errs = [kernel["max_abs_err"]]
     errs += [] if full is None else [full["inner_adamw"]["max_abs_err"]]
     errs += [] if x360 is None else [r["kernel_max_abs_err"] for r in x360["runs"].values()]
+    errs += [] if models is None else [r["kernel_max_abs_err"] for r in models["runs"].values()]
     f32 = kernel["timings"]["w f32, m f32"]
     bf16 = kernel["timings"]["w bf16, m bf16"]
     leaf_set = kernel["leaf_set"]
@@ -1652,6 +2138,8 @@ def kernels_line(kernel: dict, path: dict, fit: dict, full: dict, bench: dict, x
         "pass_ms": leaf_set["pass_ms"],
         "pass_bound_ms": leaf_set["pass_bound_ms"],
         "pass_library_ms": leaf_set["pass_library_ms"],
+        "pass_plain_ms": leaf_set["pass_plain_ms"],
+        "pass_device_ms": leaf_set["pass_device_ms"],
         "launches_per_step": path["launches_per_step"],
         "fit_launches": None if fit is None else fit["optimizer_launches"],
         "fit_launches_per_step": None if fit is None else fit["launches_per_step"],
@@ -1663,6 +2151,9 @@ def kernels_line(kernel: dict, path: dict, fit: dict, full: dict, bench: dict, x
         "x360_launches": None if x360 is None else {k: r["optimizer_launches"] for k, r in x360["runs"].items()},
         "x360_launches_per_step": None if x360 is None else {k: r["launches_per_step"] for k, r in x360["runs"].items()},
         "x360_max_abs_err": None if x360 is None else {k: r["kernel_max_abs_err"] for k, r in x360["runs"].items()},
+        "models_launches": None if models is None else {k: r["optimizer_launches"] for k, r in models["runs"].items()},
+        "models_launches_per_step": None if models is None else {k: r["launches_per_step"] for k, r in models["runs"].items()},
+        "models_max_abs_err": None if models is None else {k: r["kernel_max_abs_err"] for k, r in models["runs"].items()},
         "inner_pass": None if full is None else {
             k: full["inner_adamw"][k]
             for k in (
@@ -1727,8 +2218,10 @@ def main() -> int:
     bench = bench_phase() if "bench" in phases else None
     torch.cuda.empty_cache()
     x360 = x360_phase(smi[0] if smi else "nvidia-smi: no output") if "x360" in phases else None
+    torch.cuda.empty_cache()
+    models = models_phase(smi[0] if smi else "nvidia-smi: no output") if "models" in phases else None
     if kernel is not None and path is not None:
-        log(json.dumps(kernels_line(kernel, path, fit, full, bench, x360)))
+        log(json.dumps(kernels_line(kernel, path, fit, full, bench, x360, models)))
     log(smi[0] if smi else "nvidia-smi: no output")
     print(json.dumps({
         "ok": True,

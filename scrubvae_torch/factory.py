@@ -2,9 +2,9 @@
 ``in_channels_for``, ``build_model``, ``init_scrub_state``,
 ``_discrete_classes_for``, ``mouse_data``, ``data_and_model`` and
 ``all_saved_epochs`` in ``scrubvae_tpu/factory.py``, and the adversarial
-bundle of its ``init_scrub_state``; ``rcnn`` only, and raw pose files only:
-the preprocessed per-key layout, host streaming and the parkinsons recoding
-raise ``NotImplementedError``)."""
+bundle of its ``init_scrub_state``; the ``rcnn``, ``transformer`` and
+``mlp`` models, and raw pose files only: the preprocessed per-key layout,
+host streaming and the parkinsons recoding raise ``NotImplementedError``)."""
 
 from __future__ import annotations
 
@@ -30,8 +30,10 @@ from scrubvae_torch.models.layers import (
     PReLU,
     lecun_normal_,
 )
+from scrubvae_torch.models.mlp_vae import MLPVAE
 from scrubvae_torch.models.residual import ResVAE
 from scrubvae_torch.models.scrubvae import ScrubVAE
+from scrubvae_torch.models.transformer import LayerNorm, MultiheadAttention, TransformerVAE
 
 __all__ = [
     "feat_dims",
@@ -83,21 +85,18 @@ def build_model(
 ) -> tuple:
     """Construct the ScrubVAE on ``device``. Returns (model, info).
 
-    The Cholesky head is packed unless a loss needs the dense (B, z, z)
-    factor: with ``model.packed_sigma`` unset it is packed when the loss
-    keys are known, exclude ``total_correlation`` and the prior is gaussian;
-    an explicit ``model.packed_sigma`` wins."""
+    ``model.type`` picks the VAE, with the JAX package's defaults: ``rcnn``
+    (the default), ``transformer`` (gelu, 4 heads, ``ff_size`` 512, 4
+    layers) or ``mlp`` (``hidden`` 512-256; ``diag`` read as
+    ``bool(get("diag", True))``, so an unset ``diag`` that the config reader
+    filled with None is False, as in the JAX package). The rcnn's Cholesky
+    head is packed unless a loss needs the dense (B, z, z) factor: with
+    ``model.packed_sigma`` unset it is packed when the loss keys are known,
+    exclude ``total_correlation`` and the prior is gaussian; an explicit
+    ``model.packed_sigma`` wins. The other two always have the dense head.
+    Only the rcnn reads ``precision``."""
     dev = resolve_device(device)
     mtype = model_config.get("type") or "rcnn"
-    if mtype != "rcnn":
-        raise NotImplementedError(f"scrubvae_torch builds the rcnn model only (got {mtype!r})")
-    packed = model_config.get("packed_sigma")
-    if packed is None:
-        packed = (
-            loss_keys is not None
-            and "total_correlation" not in set(loss_keys)
-            and (model_config.get("prior") or "gaussian") == "gaussian"
-        )
     methods = disentangle_config.get("method") or {}
     fdims = feat_dims(model_config, discrete_classes)
     conditional_keys = list(methods.get("conditional", []))
@@ -108,26 +107,52 @@ def build_model(
             f"direction_process={direction_process!r} includes the 3 root channels, "
             "which requires data.arena_size for root normalization"
         )
-    z_dim = model_config.get("z_dim") or 128
-    window = model_config.get("window") or 51
-    vae = ResVAE(
+    common = dict(
         in_channels=in_ch,
-        ch=tuple(model_config.get("channel") or (64, 128, 256, 512, 1024)),
-        kernel=model_config.get("kernel") or 5,
-        z_dim=z_dim,
-        window=window,
-        activation=model_config.get("activation") or "prelu",
-        is_diag=bool(model_config.get("diag")),
+        z_dim=model_config.get("z_dim") or 128,
+        window=model_config.get("window") or 51,
         conditional_dim=conditional_dim,
-        init_dilation=model_config.get("init_dilation"),
         prior=model_config.get("prior") or "gaussian",
         arena_size=None if arena_size is None else np.asarray(arena_size, np.float32),
         conditional_keys=conditional_keys,
         discrete_classes={k: len(v) for k, v in (discrete_classes or {}).items()} or None,
-        precision=model_config.get("precision") or "fp32",
-        sigma_head_rank=model_config.get("sigma_head_rank"),
-        packed_sigma=bool(packed),
     )
+    if mtype == "rcnn":
+        packed = model_config.get("packed_sigma")
+        if packed is None:
+            packed = (
+                loss_keys is not None
+                and "total_correlation" not in set(loss_keys)
+                and (model_config.get("prior") or "gaussian") == "gaussian"
+            )
+        vae = ResVAE(
+            ch=tuple(model_config.get("channel") or (64, 128, 256, 512, 1024)),
+            kernel=model_config.get("kernel") or 5,
+            activation=model_config.get("activation") or "prelu",
+            is_diag=bool(model_config.get("diag")),
+            init_dilation=model_config.get("init_dilation"),
+            precision=model_config.get("precision") or "fp32",
+            sigma_head_rank=model_config.get("sigma_head_rank"),
+            packed_sigma=bool(packed),
+            **common,
+        )
+    elif mtype == "transformer":
+        vae = TransformerVAE(
+            activation=model_config.get("activation") or "gelu",
+            n_heads=model_config.get("n_heads") or 4,
+            ff_size=model_config.get("ff_size") or 512,
+            n_layers=model_config.get("n_layers") or 4,
+            is_diag=bool(model_config.get("diag")),
+            **common,
+        )
+    elif mtype == "mlp":
+        vae = MLPVAE(
+            hidden=tuple(model_config.get("hidden") or (512, 256)),
+            is_diag=bool(model_config.get("diag", True)),
+            **common,
+        )
+    else:
+        raise ValueError(f"unknown model type {mtype!r}")
     model = ScrubVAE(
         vae,
         linear_dims={k: fdims[k] for k in methods.get("linear", [])},
@@ -140,8 +165,8 @@ def build_model(
         conditional_dim=conditional_dim,
         disentangle_keys=list(disentangle_config.get("features") or []),
         feat_dims=fdims,
-        window=window,
-        z_dim=z_dim,
+        window=common["window"],
+        z_dim=common["z_dim"],
     )
     return model, info
 
@@ -149,8 +174,10 @@ def build_model(
 @torch.no_grad()
 def init_weights(model: nn.Module, seed: int) -> None:
     """Deterministic init from ``seed``, drawn on the CPU so every device
-    gets the same weights: flax's defaults (lecun-normal kernels, zero
-    biases, unit BatchNorm scales, PReLU 0.25) and fresh running stats."""
+    gets the same weights: flax's defaults (lecun-normal kernels, the
+    attention's q, k and v projections each over its input width, zero
+    biases, unit BatchNorm and LayerNorm scales, PReLU 0.25) and fresh
+    running stats."""
     gen = torch.Generator().manual_seed(seed)
 
     def lecun(w: torch.Tensor, fan_in: int) -> None:
@@ -166,6 +193,12 @@ def init_weights(model: nn.Module, seed: int) -> None:
                 m.bias.zero_()
         elif isinstance(m, scr.LinearProjection):
             lecun(m.weight, m.weight.shape[0])
+        elif isinstance(m, MultiheadAttention):
+            lecun(m.in_proj_weight, m.in_proj_weight.shape[1])
+            m.in_proj_bias.zero_()
+        elif isinstance(m, LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
         elif isinstance(m, BatchNorm1d):
             m.weight.fill_(1.0)
             m.bias.zero_()
@@ -184,8 +217,8 @@ def init_scrub_state(
     device="cuda",
     discrete_classes: Optional[dict] = None,
 ) -> Dict[str, Dict]:
-    """Streaming scrubber states per feature: MALS, and QDA over
-    ``discrete_classes[feat]``."""
+    """Streaming scrubber states per feature: MALS, and QDA and the
+    moving-average class means over ``discrete_classes[feat]``."""
     dev = resolve_device(device)
     methods = disentangle_config.get("method") or {}
     scrub_state: Dict[str, Dict] = {}
@@ -205,6 +238,11 @@ def init_scrub_state(
         scrub_state["qda"] = {
             feat: scr.qda_init(z_dim, np.asarray(discrete_classes[feat]), device=dev)
             for feat in methods["qda"]
+        }
+    if "moving_avg" in methods:
+        scrub_state["moving_avg"] = {
+            feat: scr.ma_init(z_dim, np.asarray(discrete_classes[feat]), device=dev)
+            for feat in methods["moving_avg"]
         }
     return scrub_state
 
@@ -241,7 +279,7 @@ def _discrete_classes_for(ids: np.ndarray, dataset_name: str) -> dict:
     """Discrete-class maps (reference get/data.py:73-95): the ids seen."""
     if dataset_name == "parkinsons":
         raise NotImplementedError(
-            "scrubvae_torch has no parkinsons id/pd_label recoding yet (ROADMAP.md A8)"
+            "scrubvae_torch has no parkinsons id/pd_label recoding yet (ROADMAP.md A.4)"
         )
     return {"ids": np.unique(ids)}
 
@@ -268,14 +306,14 @@ def mouse_data(
     if "ids" not in data_keys:
         data_keys = data_keys + ["ids"]
     if data_config.get("host_stream") and train_val_test == "train":
-        raise NotImplementedError("scrubvae_torch has no host streaming (data.host_stream) yet (ROADMAP.md A8)")
+        raise NotImplementedError("scrubvae_torch has no host streaming (data.host_stream) yet (ROADMAP.md A.4)")
 
     split_pose_file = data_path / dataset_name / train_val_test / "pose.h5"
     pose_file = data_path / dataset_name / "pose.h5"
     if not (split_pose_file.exists() or (train_val_test == "full" and pose_file.exists())):
         raise NotImplementedError(
             f"no raw pose file {split_pose_file}; scrubvae_torch does not read the "
-            "preprocessed per-key h5 layout yet (ROADMAP.md A3)"
+            "preprocessed per-key h5 layout yet (ROADMAP.md A.4)"
         )
     pose, ids = read_pose_h5(split_pose_file if split_pose_file.exists() else pose_file)
     store = build_frame_store(

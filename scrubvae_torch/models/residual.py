@@ -14,9 +14,9 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from scrubvae_torch.models.base import PoseVAE
 from scrubvae_torch.models.layers import (
     CholeskyL,
     Conv1d,
@@ -28,10 +28,8 @@ from scrubvae_torch.models.layers import (
     encoder_lengths,
     f32_or_wider,
     make_activation,
-    packed_matvec,
     packed_softplus_diag,
 )
-from scrubvae_torch.ops.kinematics import inv_normalize_root, normalize_root
 
 __all__ = ["ResidualEncoder", "ResidualDecoder", "ResVAE"]
 
@@ -127,7 +125,7 @@ class ResidualDecoder(nn.Module):
         return f32_or_wider(torch.tanh(h)).transpose(1, 2)
 
 
-class ResVAE(nn.Module):
+class ResVAE(PoseVAE):
     """Encoder/decoder with arena root normalisation and conditional
     decoding; the packed Cholesky head with ``packed_sigma``, else the
     dense one."""
@@ -151,17 +149,13 @@ class ResVAE(nn.Module):
         sigma_head_rank: Optional[int] = None,
         packed_sigma: bool = True,
     ):
-        super().__init__()
+        super().__init__(z_dim, window, is_diag, conditional_dim, arena_size, conditional_keys, discrete_classes)
         if prior != "gaussian" or sigma_head_rank:
             raise NotImplementedError(
                 "scrubvae_torch ResVAE supports the gaussian prior with a full-rank "
-                "Cholesky head only (ROADMAP.md A8)"
+                "Cholesky head only (ROADMAP.md A.5)"
             )
-        self.z_dim, self.window, self.is_diag = z_dim, window, is_diag
         self.packed_sigma = packed_sigma
-        self.conditional_dim = conditional_dim
-        self.conditional_keys = tuple(conditional_keys)
-        self.discrete_classes = dict(discrete_classes or {})
         dt = torch.bfloat16 if precision == "bf16" else None
         self.encoder = ResidualEncoder(
             in_channels, ch, kernel, z_dim, window, activation, is_diag, init_dilation, dt,
@@ -170,84 +164,26 @@ class ResVAE(nn.Module):
         self.decoder = ResidualDecoder(
             in_channels, ch, kernel, z_dim, window, activation, conditional_dim, dt
         )
-        self.register_buffer(
-            "arena",
-            None if arena_size is None else torch.as_tensor(arena_size, dtype=torch.float32),
-            persistent=False,
-        )
 
-    def encode(self, data: Dict[str, torch.Tensor], mu_only: bool = False) -> Dict[str, torch.Tensor]:
+    def encode(
+        self, data: Dict[str, torch.Tensor], mu_only: bool = False, generator: Optional[torch.Generator] = None
+    ) -> Dict[str, torch.Tensor]:
         """mu (and the Cholesky factor) of the batch; the encoder reads the
         heading-free view ``x6d_enc``/``root_enc`` when the batch carries it
         (``data.encoder_direction_process``), else ``x6d``/``root``."""
-        x6d = data.get("x6d_enc", data["x6d"])
-        B, W = x6d.shape[:2]
-        x_in = x6d.reshape(B, W, -1)
-        if self.arena is not None:
-            norm_root = normalize_root(data.get("root_enc", data["root"]), self.arena.to(x6d.dtype))
-            x_in = torch.cat([x_in, norm_root], dim=-1)
+        x_in = self.pose_input(data.get("x6d_enc", data["x6d"]), data.get("root_enc", data["root"]))
         mu, L = self.encoder(x_in, mu_only=mu_only)
         if L is None:
             return {"mu": mu}
         return {"mu": mu, self.sigma_key: L}
 
-    @property
-    def sigma_key(self) -> str:
-        """The key of the Cholesky factor in ``encode``'s output."""
-        return "Lp" if self.packed_sigma else "L"
-
-    def build_conditionals(self, data: Dict[str, torch.Tensor]) -> Optional[torch.Tensor]:
-        """One-hot discrete + continuous conditionals, concatenated."""
-        if self.conditional_dim <= 0:
-            return None
-        parts = []
-        for k in self.conditional_keys:
-            v = data[k]
-            if k in self.discrete_classes:
-                parts.append(
-                    F.one_hot(v.reshape(-1).long(), self.discrete_classes[k]).float()
-                )
-            else:
-                parts.append(v)
-        return torch.cat(parts, dim=-1)
-
-    def decode(self, z: torch.Tensor, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def decode(
+        self, z: torch.Tensor, data: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None
+    ) -> Dict[str, torch.Tensor]:
         out: Dict[str, torch.Tensor] = {}
         var = self.build_conditionals(data)
         if var is not None:
             out["var"] = var
             z = torch.cat([z, var], dim=-1)
-        x_hat = self.decoder(z)
-        B = z.shape[0]
-        if self.arena is not None:
-            x6d = x_hat[..., :-3]
-            out["root"] = inv_normalize_root(x_hat[..., -3:], self.arena.to(x_hat.dtype)).reshape(
-                B, self.window, 3
-            )
-        else:
-            x6d = x_hat
-        out["x6d"] = x6d.reshape(B, self.window, -1, 6)
-        return out
-
-    def sample_z(self, mu: torch.Tensor, L: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
-        """mu + L @ eps for standard-normal ``eps`` of mu's shape."""
-        eps = eps.to(mu.dtype)
-        if self.packed_sigma:
-            return mu + packed_matvec(L, eps, self.z_dim, self.is_diag)
-        return mu + torch.einsum("bij,bj->bi", L, eps)
-
-    def forward(
-        self,
-        data: Dict[str, torch.Tensor],
-        eps: Optional[torch.Tensor] = None,
-        mu_only: bool = False,
-    ) -> Dict[str, torch.Tensor]:
-        """z = mu + L eps in training mode when ``eps`` is given, else mu."""
-        out = self.encode(data, mu_only=mu_only)
-        if self.training and eps is not None and not mu_only:
-            z = self.sample_z(out["mu"], out[self.sigma_key], eps)
-        else:
-            z = out["mu"]
-        out["z"] = z
-        out.update(self.decode(z, data))
+        out.update(self.pose_output(self.decoder(z)))
         return out

@@ -1,14 +1,15 @@
 """Scrubbers (counterpart of the gradient-reversal, MLP-ensemble,
-linear-projection, moving-average-least-squares, QDA, adversarial-net and
-MCMI parts of ``scrubvae_tpu/models/scrubbers.py``).
+linear-projection, polynomial-expansion, moving-average-least-squares,
+moving-average class-mean, QDA, adversarial-net and MCMI parts of
+``scrubvae_tpu/models/scrubbers.py``).
 
 Trainable heads are ``nn.Module``s inside the model, so the one outer
 optimizer covers them. The streaming scrubbers keep explicit state:
-``mals_loss`` and ``qda_loss`` return the state with its forgetting factors
-tuned, and ``mals_update`` and ``qda_update`` accumulate their statistics
-after the optimizer step. The adversarial discriminator (``AdvNet``) is a
-module of its own, outside the model, trained by ``adv_fit`` with its own
-AdamW; MCMI's kernel estimator (``MIState``) is rebuilt by ``mi_init``.
+``mals_loss``, ``ma_loss`` and ``qda_loss`` return the state with its
+forgetting factors tuned, and ``mals_update``, ``ma_update`` and
+``qda_update`` accumulate their statistics after the optimizer step. The
+adversarial discriminator (``AdvNet``) is a module of its own, outside the
+model, trained by ``adv_fit`` with its own AdamW; MCMI's kernel estimator (``MIState``) is rebuilt by ``mi_init``.
 
 Every shuffle of the adversarial scrubber takes its permutation as an
 argument; the callers draw it from a ``torch.Generator``.
@@ -17,6 +18,8 @@ argument; the callers draw it from a ``torch.Generator``.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import itertools
 import math
 from typing import Optional, Sequence
 
@@ -32,11 +35,18 @@ __all__ = [
     "MLPEnsemble",
     "LinearProjection",
     "GRScrubber",
+    "polynomial_indices",
+    "polynomial_expand",
+    "poly_dim",
     "MALSState",
     "mals_init",
     "mals_forward",
     "mals_loss",
     "mals_update",
+    "MAFilterState",
+    "ma_init",
+    "ma_loss",
+    "ma_update",
     "QDAState",
     "qda_init",
     "qda_loss",
@@ -117,6 +127,39 @@ class GRScrubber(nn.Module):
         return self.ensemble(grad_reverse(z, self.alpha))
 
 
+@functools.lru_cache(maxsize=None)
+def polynomial_indices(nx: int, order: int) -> tuple:
+    """The index combinations (with replacement) of each degree 2..order,
+    one (n_combos, degree) array per degree."""
+    return tuple(
+        torch.tensor(list(itertools.combinations_with_replacement(range(nx), deg)), dtype=torch.long)
+        for deg in range(2, order + 1)
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _polynomial_indices_on(nx: int, order: int, device: torch.device) -> tuple:
+    return tuple(idx.to(device) for idx in polynomial_indices(nx, order))
+
+
+def polynomial_expand(x: torch.Tensor, order: int) -> torch.Tensor:
+    """x (B, nx) and its monomials of degree 2..order, each degree's block
+    scaled by nx over its number of monomials."""
+    if order <= 1:
+        return x
+    nx = x.shape[-1]
+    feats = [x]
+    for idx in _polynomial_indices_on(nx, order, x.device):
+        feats.append(torch.prod(x[:, idx], dim=-1) / idx.shape[0] * nx)
+    return torch.cat(feats, dim=-1)
+
+
+def poly_dim(nx: int, order: int) -> int:
+    """Width of ``polynomial_expand``'s output: the monomials of degree
+    1..order in nx variables."""
+    return sum(math.comb(nx + deg - 1, deg) for deg in range(1, order + 1))
+
+
 @dataclasses.dataclass
 class MALSState:
     """Two exponentially forgotten normal-equation systems (forgetting
@@ -148,9 +191,7 @@ def mals_init(
     l2_reg: float = 0.0,
     device=None,
 ) -> MALSState:
-    if polynomial_order != 1:
-        raise NotImplementedError("scrubvae_torch MALS supports polynomial order 1 only")
-    n = nx + int(bias)
+    n = poly_dim(nx, polynomial_order) + int(bias)
     f32 = dict(dtype=torch.float32, device=device)
     return MALSState(
         Sxx0=torch.eye(n, **f32),
@@ -168,6 +209,7 @@ def mals_init(
 
 
 def _mals_features(state: MALSState, x: torch.Tensor) -> torch.Tensor:
+    x = polynomial_expand(x, state.polynomial_order)
     if state.bias:
         x = torch.cat([x, x.new_ones(x.shape[0], 1)], dim=-1)
     return x
@@ -209,6 +251,82 @@ def mals_update(state: MALSState, x: torch.Tensor, y: torch.Tensor) -> MALSState
         Sxy0=state.lam0 * state.Sxy0 + xy,
         Sxx1=state.lam1 * state.Sxx1 + xx,
         Sxy1=state.lam1 * state.Sxy1 + xy,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Moving-average per-class mean filter
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class MAFilterState:
+    """Two exponentially forgotten estimates of each class's mean latent
+    (forgetting factors lam1 < lam2 per class) and their static settings."""
+
+    classes: torch.Tensor  # (C,) class label values
+    m1: torch.Tensor  # (C, nx)
+    m2: torch.Tensor
+    lam1: torch.Tensor  # (C,)
+    lam2: torch.Tensor
+    lamdiff: float = 1e-2
+    delta: float = 1e-3
+
+    def replace(self, **kw) -> "MAFilterState":
+        return dataclasses.replace(self, **kw)
+
+
+def ma_init(nx: int, classes, lamdiff: float = 1e-2, delta: float = 1e-3, device=None) -> MAFilterState:
+    classes = torch.as_tensor(classes, device=device)
+    C = classes.shape[0]
+    f32 = dict(dtype=torch.float32, device=device)
+    return MAFilterState(
+        classes=classes,
+        m1=torch.zeros((C, nx), **f32),
+        m2=torch.zeros((C, nx), **f32),
+        lam1=torch.full((C,), 0.5, **f32),
+        lam2=torch.full((C,), 0.5 + lamdiff, **f32),
+        lamdiff=lamdiff,
+        delta=delta,
+    )
+
+
+def _class_means(x: torch.Tensor, y: torch.Tensor, classes: torch.Tensor) -> torch.Tensor:
+    """Per-class batch means (C, nx); a class absent from the batch gets 0."""
+    mask = (y.reshape(1, -1) == classes.reshape(-1, 1)).to(x.dtype)  # (C, B)
+    counts = torch.clamp(mask.sum(dim=1, keepdim=True), min=1.0)
+    return (mask @ x) / counts
+
+
+def ma_loss(state: MAFilterState, x: torch.Tensor, y: torch.Tensor):
+    """Distance between the estimated class means (every pair); moves each
+    class's forgetting factors toward the estimate nearer this batch's
+    mean. Returns (loss, new_state). The norm is smoothed, sqrt(sum + 1e-12):
+    a plain norm's gradient is nan where the class means coincide, as the
+    zero means do at step 1."""
+    xbar = _class_means(x, y, state.classes)
+    m1, m2 = state.m1.detach(), state.m2.detach()
+    closer1 = torch.linalg.vector_norm(xbar - m1, dim=-1) < torch.linalg.vector_norm(xbar - m2, dim=-1)
+    down = torch.clamp(state.lam1 - state.delta, 0.0, 1.0)
+    up = torch.clamp(state.lam2 + state.delta, 0.0, 1.0)
+    lam1 = torch.where(closer1, down, up - state.lamdiff)
+    lam2 = torch.where(closer1, down + state.lamdiff, up)
+    m1 = (1 - lam1[:, None]) * xbar + lam1[:, None] * m1
+    m2 = (1 - lam2[:, None]) * xbar + lam2[:, None] * m2
+    mean_est = 0.5 * (m1 + m2)
+    diff = mean_est.T[..., None] - mean_est.T[..., None, :]  # (nx, C, C)
+    triu = torch.triu(diff, diagonal=1)
+    loss = torch.sqrt(torch.sum(triu * triu) + 1e-12)
+    return loss, state.replace(lam1=lam1, lam2=lam2)
+
+
+@torch.no_grad()
+def ma_update(state: MAFilterState, x: torch.Tensor, y: torch.Tensor) -> MAFilterState:
+    """Forget and accumulate both class-mean estimates with this batch."""
+    xbar = _class_means(x.detach(), y, state.classes)
+    return state.replace(
+        m1=(1 - state.lam1[:, None]) * xbar + state.lam1[:, None] * state.m1,
+        m2=(1 - state.lam2[:, None]) * xbar + state.lam2[:, None] * state.m2,
     )
 
 

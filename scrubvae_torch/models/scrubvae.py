@@ -38,8 +38,12 @@ class ScrubVAE(nn.Module):
         data: Dict[str, torch.Tensor],
         eps: Optional[torch.Tensor] = None,
         mu_only: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> Dict:
-        out = self.vae(data, eps=eps, mu_only=mu_only)
+        """The VAE's output (``models/base.py``; ``generator`` draws its
+        dropout masks in training mode) and, under ``disentangle``, each
+        scrubber head's."""
+        out = self.vae(data, eps=eps, mu_only=mu_only, generator=generator)
         dis: Dict[str, Dict] = {}
         if len(self.linear):
             dis["linear"] = {k: m(out["mu"]) for k, m in self.linear.items()}

@@ -1,7 +1,7 @@
 """Primitive losses of the train step (counterpart of the
-``stable_rotation_loss`` / ``prior_loss`` / ``prior_loss_packed`` /
-``mpjpe_loss`` / ``mse_sum`` / ``total_correlation`` part of
-``scrubvae_tpu/ops/losses.py``)."""
+``rotation_loss`` / ``stable_rotation_loss`` / ``prior_loss`` /
+``prior_loss_packed`` / ``mpjpe_loss`` / ``direct_lsq_loss`` / ``mse_sum`` /
+``total_correlation`` part of ``scrubvae_tpu/ops/losses.py``)."""
 
 from __future__ import annotations
 
@@ -12,13 +12,16 @@ import torch
 
 from scrubvae_torch.ops.kinematics import KinematicTree, fwd_kin_cont6d
 from scrubvae_torch.ops.rotation import rotation_6d_to_matrix
+from scrubvae_torch.ops.smallsolve import spd_solve
 
 __all__ = [
     "mse_sum",
+    "rotation_loss",
     "stable_rotation_loss",
     "prior_loss",
     "prior_loss_packed",
     "mpjpe_loss",
+    "direct_lsq_loss",
     "total_correlation",
 ]
 
@@ -27,6 +30,17 @@ LN2PI = math.log(2.0 * math.pi)
 
 def mse_sum(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.sum((pred - target) ** 2)
+
+
+def rotation_loss(x: torch.Tensor, x_hat: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Geodesic loss, acos form: the angle of every relative rotation,
+    summed and divided by the batch."""
+    m1 = rotation_6d_to_matrix(x).reshape(-1, 3, 3)
+    m2 = rotation_6d_to_matrix(x_hat).reshape(-1, 3, 3)
+    m = m1 @ m2.transpose(-1, -2)
+    cos = (m[:, 0, 0] + m[:, 1, 1] + m[:, 2, 2] - 1.0) / 2.0
+    cos = torch.clamp(cos, -1.0 + eps, 1.0 - eps)
+    return torch.sum(torch.acos(cos)) / x.shape[0]
 
 
 def stable_rotation_loss(x: torch.Tensor, x_hat: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
@@ -86,6 +100,16 @@ def mpjpe_loss(
         eps=1e-8,
     ).reshape(target_pose.shape)
     return torch.sum((target_pose - pose_hat) ** 2) / (B * 3 * J)
+
+
+def direct_lsq_loss(z: torch.Tensor, y: torch.Tensor, bias: bool = False) -> torch.Tensor:
+    """Summed squared residual of the closed-form least-squares decoder of
+    ``y`` from ``z`` (with a column of ones when ``bias``), through the
+    normal equations ``z^T z``, as the JAX package solves them."""
+    if bias:
+        z = torch.cat([z, z.new_ones(z.shape[0], 1)], dim=-1)
+    yhat = z @ spd_solve(z.T @ z, z.T @ y)
+    return torch.sum((yhat - y) ** 2)
 
 
 def _gaussian_log_density_unsummed(z: torch.Tensor, mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """Batch-loss assembly (counterpart of ``compute_batch_loss`` in
 ``scrubvae_tpu/train/losses.py``): rotation, prior (packed or dense head),
 jpe, root, mcmi, the per-feature scrubber losses ``{feat}_mals``,
-``{feat}_qda``, ``{feat}_lin``, ``{feat}_gr`` and ``{feat}_an``, and
-total_correlation. ``total`` is the loss-scale weighted sum, in the order
-the terms were added, which is the JAX package's."""
+``{feat}_qda``, ``{feat}_lsq``, ``{feat}_lin``, ``{feat}_gr``, ``{feat}_ma``
+and ``{feat}_an``, and total_correlation. ``total`` is the loss-scale
+weighted sum, in the order the terms were added, which is the JAX
+package's."""
 
 from __future__ import annotations
 
@@ -18,21 +19,6 @@ from scrubvae_torch.ops.kinematics import KinematicTree
 
 __all__ = ["compute_batch_loss"]
 
-SUPPORTED_METHODS = (
-    "conditional", "linear", "moving_avg_lsq", "grad_reversal", "adversarial_net", "qda",
-)
-
-
-def _check_methods(disentangle_config: dict) -> None:
-    """Raise ``NotImplementedError`` for a scrubber the port does not have."""
-    methods = disentangle_config.get("method") or {}
-    unknown = sorted(set(methods) - set(SUPPORTED_METHODS))
-    if unknown or disentangle_config.get("gr_legacy_norm") or "ids" in (methods.get("grad_reversal") or ()):
-        raise NotImplementedError(
-            f"scrubvae_torch has no scrubber {unknown}, gr_legacy_norm or gradient reversal "
-            "on ids yet (ROADMAP.md A8)"
-        )
-
 
 def compute_batch_loss(
     data: Dict[str, torch.Tensor],
@@ -45,10 +31,14 @@ def compute_batch_loss(
     mi_state: Optional[scr.MIState] = None,
     adv_perm: Optional[torch.Tensor] = None,
     feat_slices: Optional[Dict[str, torch.Tensor]] = None,
+    static_loss_scale: Optional[Dict[str, float]] = None,
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Dict]]:
     """Returns (batch-loss dict incl. 'total', new scrub state).
     ``adv_perm`` is the batch permutation of every ``{feat}_an`` loss's
-    shuffle, ``feat_slices[feat]`` the columns of ``feat`` in ``var``."""
+    shuffle, ``feat_slices[feat]`` the columns of ``feat`` in ``var``.
+    ``static_loss_scale`` holds the configured loss weights: the sign of
+    ``{feat}_lsq``'s there, not the weight of this step, decides the bias
+    column of ``direct_lsq`` (none when it is not given)."""
     batch_size = data["x6d"].shape[0]
     bl: Dict[str, torch.Tensor] = {}
     new_state = {m: dict(v) for m, v in scrub_state.items()}
@@ -71,7 +61,6 @@ def compute_batch_loss(
         else:
             bl["mcmi"] = torch.zeros((), device=data["x6d"].device)
 
-    _check_methods(disentangle_config)
     methods = disentangle_config.get("method") or {}
     linear_keys = set(methods.get("linear") or ())
     for method, keys in methods.items():
@@ -93,6 +82,9 @@ def compute_batch_loss(
                 loss, st2 = scr.qda_loss(scrub_state["qda"][key], latent, data[key])
                 bl[key + "_qda"] = loss / batch_size
                 new_state["qda"][key] = st2
+            elif method == "direct_lsq":
+                sls = static_loss_scale or {}
+                bl[key + "_lsq"] = L.direct_lsq_loss(latent, data[key], bias=float(sls.get(key + "_lsq", 0.0)) < 0)
             elif method == "linear":
                 bl[key + "_lin"] = (
                     L.mse_sum(data_o["disentangle"]["linear"][key]["v"], data[key])
@@ -101,8 +93,27 @@ def compute_batch_loss(
                 )
             elif method == "grad_reversal":
                 heads = data_o["disentangle"]["grad_reversal"][key]
-                total = sum(L.mse_sum(gr_e, data[key]) for gr_e in heads)
-                bl[key + "_gr"] = total / (len(heads) * num_keys * batch_size)
+                # gr_legacy_norm: the reference divides the accumulated loss
+                # inside the head loop, down-weighting the earlier heads
+                legacy = bool(disentangle_config.get("gr_legacy_norm"))
+                denom = len(heads) * num_keys * batch_size
+                total = torch.zeros((), device=data["x6d"].device)
+                for gr_e in heads:
+                    if key == "ids":
+                        # JAX's gather clamps a label past the last column
+                        labels = data[key].reshape(-1).long().clamp(0, gr_e.shape[-1] - 1)
+                        logp = torch.log_softmax(gr_e, dim=-1)
+                        head_loss = -torch.sum(logp.gather(1, labels[:, None]))
+                    else:
+                        head_loss = L.mse_sum(gr_e, data[key])
+                    total = total + head_loss
+                    if legacy:
+                        total = total / denom
+                bl[key + "_gr"] = total if legacy else total / denom
+            elif method == "moving_avg":
+                loss, st2 = scr.ma_loss(scrub_state["moving_avg"][key], latent, data[key])
+                bl[key + "_ma"] = loss
+                new_state["moving_avg"][key] = st2
             elif method == "adversarial_net":
                 bl[key + "_an"] = scr.adv_generator_loss(
                     adv_states[key], data_o["mu"], data_o["var"], feat_slices[key], adv_perm

@@ -1,9 +1,11 @@
 """The train and eval steps (counterparts of ``feature_slices``,
 ``make_train_step`` and ``make_eval_step`` of ``scrubvae_tpu/train/step.py``).
 The train step runs in the JAX order: window assembly, forward, loss,
-backward, fused optimizer, the MALS and QDA updates on the detached mu, the
-discriminators' inner fit, then the MCMI estimator rebuilt from the batch
-encoded under the updated parameters."""
+backward, fused optimizer, the MALS, moving-average and QDA updates on the
+detached mu, the discriminators' inner fit, then the MCMI estimator rebuilt
+from the batch encoded under the updated parameters. Every draw of a step
+(the sample noise, the adversarial shuffles, the dropout masks, in that
+order) comes from ``state.generator``."""
 
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from scrubvae_torch.train.state import TrainState
 
 __all__ = ["feature_slices", "draw_adv_perms", "encode_mi_state", "make_train_step", "make_eval_step"]
 
-STREAMING_UPDATES = {"moving_avg_lsq": scr.mals_update, "qda": scr.qda_update}
+STREAMING_UPDATES = {"moving_avg_lsq": scr.mals_update, "moving_avg": scr.ma_update, "qda": scr.qda_update}
 
 
 def feature_slices(conditional_keys: Sequence[str], fdims: dict) -> Dict[str, np.ndarray]:
@@ -49,8 +51,8 @@ def draw_adv_perms(generator: torch.Generator, batch: int, features: Sequence[st
 @torch.no_grad()
 def encode_mi_state(model: nn.Module, data: Dict[str, torch.Tensor], var: torch.Tensor, bandwidth: float, var_mode: str) -> scr.MIState:
     """The MCMI estimator of ``data`` encoded in eval mode (BatchNorm's
-    running statistics, which stay as they are) and ``var``; the model
-    returns to the mode it was in."""
+    running statistics, which stay as they are; no dropout) and ``var``;
+    the model returns to the mode it was in."""
     was_training = model.training
     model.eval()
     try:
@@ -83,6 +85,7 @@ def make_train_step(
     adv_n_iter: int = 5,
     mcmi_bandwidth: float = 1.0,
     mcmi_var_mode: str = "sphere",
+    static_loss_scale: Optional[Dict[str, float]] = None,
 ) -> Callable:
     """Build ``step(state, idx, loss_scale, eps=None, perms=None) -> (state,
     metrics)``.
@@ -91,7 +94,8 @@ def make_train_step(
     ``perms`` (``draw_adv_perms``' layout) the adversarial shuffles, both
     drawn from ``state.generator`` otherwise. Parameters, moments, BatchNorm
     statistics and the discriminators update in place; metrics stay on the
-    device. ``adv_tx`` is the discriminators' optimizer.
+    device. ``adv_tx`` is the discriminators' optimizer;
+    ``static_loss_scale`` the configured loss weights (``compute_batch_loss``).
     """
     params = list(model.parameters())
     slices = _device_slices(feat_slices, params[0].device)
@@ -105,11 +109,12 @@ def make_train_step(
         if state.adv_states and perms is None:
             perms = draw_adv_perms(state.generator, B, list(state.adv_states), adv_n_iter)
         model.train()
-        out = model(data, eps=eps)
+        out = model(data, eps=eps, generator=state.generator)
         bl, new_scrub = compute_batch_loss(
             data, out, loss_scale, disentangle_config, tree, state.scrub_state,
             adv_states=state.adv_states, mi_state=state.mi_state,
             adv_perm=perms["loss"] if perms else None, feat_slices=slices,
+            static_loss_scale=static_loss_scale,
         )
         grads = torch.autograd.grad(bl["total"], params, allow_unused=True)
         opt_state = tx.update_and_apply(grads, state.opt_state, params)
@@ -142,10 +147,11 @@ def make_eval_step(
     loss_keys,
     batch_fn: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
     feat_slices: Optional[Dict[str, np.ndarray]] = None,
+    static_loss_scale: Optional[Dict[str, float]] = None,
 ) -> Callable:
     """Build ``step(state, idx, loss_scale, data=None, generator=None) ->
     (losses, mu)``: the forward in eval mode (BatchNorm running statistics,
-    z = mu) and the loss terms, with no gradient and no state change; the
+    no dropout, z = mu) and the loss terms, with no gradient and no state change; the
     scrubber state that the losses return is dropped. ``data`` is the
     assembled batch of ``idx`` when the caller has it already; the
     adversarial losses' shuffle is drawn from ``generator``.
@@ -168,6 +174,7 @@ def make_eval_step(
         bl, _ = compute_batch_loss(
             data, out, loss_scale, disentangle_config, tree, state.scrub_state,
             adv_states=state.adv_states, mi_state=state.mi_state, adv_perm=adv_perm, feat_slices=slices,
+            static_loss_scale=static_loss_scale,
         )
         return bl, out["mu"]
 

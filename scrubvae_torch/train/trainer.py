@@ -1,6 +1,7 @@
 """Training orchestration (counterpart of ``Trainer`` and ``train`` of
 ``scrubvae_tpu/train/trainer.py``): beta annealing, per-epoch re-init of
 the gradient-reversal ensembles, MALS and QDA lambda logging, the
+streaming scrubber states (MALS, moving-average class means, QDA), the
 adversarial discriminators and the MCMI estimator carried in the train
 state, weights every 5 epochs and the full state every 20, validation
 losses (after the MCMI estimator is rebuilt from the validation split) and
@@ -122,11 +123,13 @@ class Trainer:
             adv_tx=self.adv_bundle["tx"] if self.adv_bundle else None,
             adv_fit=adv_fit is None or bool(adv_fit), adv_n_iter=int(self.dis_cfg.get("n_iter") or 5),
             mcmi_bandwidth=self.mcmi_bandwidth, mcmi_var_mode=self.mcmi_var_mode,
+            static_loss_scale=self.loss_cfg,
         )
         self.eval_step = (
             make_eval_step(
                 self.model, tree, disentangle_config=self.dis_cfg,
                 loss_keys=tuple(self.loss_cfg), batch_fn=self.val_ds.batch, feat_slices=self.feat_slices,
+                static_loss_scale=self.loss_cfg,
             )
             if self.val_ds is not None
             else None

@@ -10,10 +10,10 @@ are not read.
   their storage dtype, so bf16 leaves stay bf16.
 - Full state: the weights plus the optimizer's moments, its device step
   count and host step (the Philox counter of the rounding bits), the
-  streaming scrubber states (MALS, QDA), each adversarial discriminator's
+  streaming scrubber states (MALS, moving-average class means, QDA), each adversarial discriminator's
   parameters with its own optimizer's moments and counts, the MCMI
-  estimator, the state of the generator of the sample noise and the
-  shuffles and, where the caller gives it, the state of the numpy
+  estimator, the state of the generator of the sample noise, the
+  shuffles and the dropout masks and, where the caller gives it, the state of the numpy
   generator of the batch order (so a resumed epoch draws the batches the
   run would have drawn).
 

@@ -2,8 +2,10 @@
 
 ``from_jax_variables`` maps a flax ``params``/``batch_stats`` tree,
 flattened to ``"params/vae/encoder/..."`` numpy arrays, onto the port's
-``ScrubVAE`` state-dict names. The port keeps its own copy of the layout
-rules (``scrubvae_tpu/utils/torch_export.py`` holds the same ones):
+``ScrubVAE`` state-dict names, for each of the three model families (the
+tree's own keys tell them apart). The port keeps its own copy of the
+layout rules (``scrubvae_tpu/utils/torch_export.py`` holds the same ones
+for the rcnn and the transformer):
 
 - conv kernel (k, in, out)                  -> Conv1d weight (out, in, k)
 - input-dilated correlation kernel          -> ConvTranspose1d weight
@@ -14,6 +16,18 @@ rules (``scrubvae_tpu/utils/torch_export.py`` holds the same ones):
   outputs take the permutation
 - BatchNorm scale/bias + batch_stats mean/var -> weight/bias/running_*
 - scalar PReLU alpha                        -> weight of shape (1,)
+- attention ``query``/``key``/``value``       -> ``in_proj_weight`` (3d, d),
+  kernels (d, heads, head_dim) and biases      rows in q, k, v order, and
+                                               ``in_proj_bias``
+- attention ``out`` kernel (heads, head_dim, d) -> ``out_proj.weight`` (d, d)
+- LayerNorm scale                           -> weight
+- the transformer's flax layers ``EncoderLayer_{i}``/``DecoderLayer_{i}``
+  (``MultiHeadDotProductAttention_{0,1}``, ``Dense_{0,1}``,
+  ``LayerNorm_{0,1,2}``) -> ``transformer_encoder.layers.{i}``/
+  ``transformer_decoder.layers.{i}`` (``self_attn``, ``multihead_attn``,
+  ``linear1``/``linear2``, ``norm1``/``norm2``/``norm3``); the MLP's
+  ``enc_{i}``, ``fc_mu``, ``fc_sigma``, ``dec_{i}`` and ``dec_out`` keep
+  their names
 
 The maps are linear rearrangements, so they carry gradients and updates
 as well as weights. ``adv_from_jax`` does the same for an adversarial
@@ -29,12 +43,13 @@ from typing import Dict
 import numpy as np
 import torch
 
-from scrubvae_torch.models.scrubbers import MALSState, MIState, QDAState
+from scrubvae_torch.models.scrubbers import MAFilterState, MALSState, MIState, QDAState
 
 __all__ = [
     "from_jax_variables",
     "adv_from_jax",
     "mals_state_from_numpy",
+    "ma_state_from_numpy",
     "qda_state_from_numpy",
     "mi_state_from_numpy",
 ]
@@ -65,19 +80,9 @@ def _strip_scope(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     return out
 
 
-def from_jax_variables(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """Port state dict (CPU f32 tensors) from a flattened flax tree. Takes
-    whatever leaves are present (a gradient tree has no batch_stats) and
-    raises on a leaf it cannot place."""
-    flat = {k: np.asarray(v, dtype=np.float32) for k, v in _strip_scope(flat).items()}
-    sd: Dict[str, np.ndarray] = {}
-    used = set()
-
-    def take(path):
-        if path in flat:
-            used.add(path)
-            return flat[path]
-        return None
+def _rcnn(take, sd: dict, flat: dict) -> None:
+    """The rcnn ResVAE's leaves (``ResidualBlock_{i}``, ``fc_mu``,
+    ``fc_sigma``, ``fc_in``, ``ResidualBlockTranspose_{i}``, ``conv_out``)."""
 
     def conv(src, dst, transpose=False):
         w, b = take(f"params/{src}/kernel"), take(f"params/{src}/bias")
@@ -160,6 +165,96 @@ def from_jax_variables(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         prelu(f"{f}/PReLU_1", f"{t}.add.1")
     conv("decoder/conv_out", "decoder.conv_out", transpose=True)
 
+
+def _mha_in_proj(ks, bs):
+    """q, k, v kernels (d, heads, head_dim) and biases (heads, head_dim) ->
+    ``in_proj_weight`` (3d, d) and ``in_proj_bias`` (3d,)."""
+    d = ks[0].shape[0]
+    w = np.concatenate([k.reshape(d, -1).T for k in ks], axis=0)
+    b = None if any(x is None for x in bs) else np.concatenate([x.reshape(-1) for x in bs])
+    return w, b
+
+
+def _transformer(take, dense, sd: dict, flat: dict) -> None:
+    """The transformer's leaves: ``pose_embedding``, the encoder and
+    decoder layers, ``fc_mu``, ``fc_sigma``, ``fc_out`` and ``cond_proj``."""
+
+    def mha(src, dst):
+        ks = [take(f"params/{src}/{n}/kernel") for n in ("query", "key", "value")]
+        bs = [take(f"params/{src}/{n}/bias") for n in ("query", "key", "value")]
+        if all(k is not None for k in ks):
+            sd[f"vae.{dst}.in_proj_weight"], b = _mha_in_proj(ks, bs)
+            if b is not None:
+                sd[f"vae.{dst}.in_proj_bias"] = b
+        ok, ob = take(f"params/{src}/out/kernel"), take(f"params/{src}/out/bias")
+        if ok is not None:
+            sd[f"vae.{dst}.out_proj.weight"] = ok.reshape(-1, ok.shape[-1]).T
+        if ob is not None:
+            sd[f"vae.{dst}.out_proj.bias"] = ob
+
+    def norm(src, dst):
+        w, b = take(f"params/{src}/scale"), take(f"params/{src}/bias")
+        if w is not None:
+            sd[f"vae.{dst}.weight"] = w
+        if b is not None:
+            sd[f"vae.{dst}.bias"] = b
+
+    def layers(side, name):
+        pat = re.compile(rf"params/{side}/{name}_(\d+)/")
+        return sorted({int(m.group(1)) for p in flat if (m := pat.match(p))})
+
+    dense("encoder/pose_embedding", "encoder.pose_embedding")
+    for i in layers("encoder", "EncoderLayer"):
+        f, t = f"encoder/EncoderLayer_{i}", f"encoder.transformer_encoder.layers.{i}"
+        mha(f"{f}/MultiHeadDotProductAttention_0", f"{t}.self_attn")
+        dense(f"{f}/Dense_0", f"{t}.linear1")
+        dense(f"{f}/Dense_1", f"{t}.linear2")
+        norm(f"{f}/LayerNorm_0", f"{t}.norm1")
+        norm(f"{f}/LayerNorm_1", f"{t}.norm2")
+    dense("encoder/fc_mu", "encoder.fc_mu")
+    dense("encoder/fc_sigma", "encoder.fc_sigma.0")
+    for i in layers("decoder", "DecoderLayer"):
+        f, t = f"decoder/DecoderLayer_{i}", f"decoder.transformer_decoder.layers.{i}"
+        mha(f"{f}/MultiHeadDotProductAttention_0", f"{t}.self_attn")
+        mha(f"{f}/MultiHeadDotProductAttention_1", f"{t}.multihead_attn")
+        dense(f"{f}/Dense_0", f"{t}.linear1")
+        dense(f"{f}/Dense_1", f"{t}.linear2")
+        for j in range(3):
+            norm(f"{f}/LayerNorm_{j}", f"{t}.norm{j + 1}")
+    dense("decoder/fc_out", "decoder.fc_out")
+    dense("cond_proj", "cond_proj")
+
+
+def from_jax_variables(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Port state dict (CPU f32 tensors) from a flattened flax tree. Takes
+    whatever leaves are present (a gradient tree has no batch_stats) and
+    raises on a leaf it cannot place."""
+    flat = {k: np.asarray(v, dtype=np.float32) for k, v in _strip_scope(flat).items()}
+    sd: Dict[str, np.ndarray] = {}
+    used = set()
+
+    def take(path):
+        if path in flat:
+            used.add(path)
+            return flat[path]
+        return None
+
+    def dense(src, dst):
+        k, b = take(f"params/{src}/kernel"), take(f"params/{src}/bias")
+        if k is not None:
+            sd[f"vae.{dst}.weight"] = k.T
+        if b is not None:
+            sd[f"vae.{dst}.bias"] = b
+
+    if any(p.startswith("params/encoder/pose_embedding/") for p in flat):
+        _transformer(take, dense, sd, flat)
+    elif any(p.startswith(("params/enc_0/", "params/dec_out/")) for p in flat):
+        for p in sorted({p.split("/")[1] for p in flat if p.startswith("params/")}):
+            if re.fullmatch(r"(enc|dec)_\d+|fc_mu|fc_sigma|dec_out", p):
+                dense(p, p)
+    else:
+        _rcnn(take, sd, flat)
+
     for p in list(flat):
         if m := re.fullmatch(r"params/linear_([^/]+)/kernel", p):
             sd[f"linear.{m.group(1)}.weight"] = take(p)  # (out, z) in both
@@ -195,6 +290,13 @@ def _from_numpy(arrays: Dict[str, np.ndarray], like, fields, device):
     return like.replace(
         **{k: torch.as_tensor(np.array(arrays[k], np.float32), device=device) for k in fields}
     )
+
+
+def ma_state_from_numpy(arrays: Dict[str, np.ndarray], like: MAFilterState, device=None) -> MAFilterState:
+    """A moving-average state with the arrays of a JAX ``MAFilterState``
+    (m1, m2, lam1, lam2) and ``like``'s classes and static settings."""
+    dev = like.m1.device if device is None else device
+    return _from_numpy(arrays, like, ("m1", "m2", "lam1", "lam2"), dev)
 
 
 def mals_state_from_numpy(arrays: Dict[str, np.ndarray], like: MALSState, device=None) -> MALSState:

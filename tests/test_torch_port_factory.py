@@ -234,32 +234,40 @@ def _shipped(name: str) -> dict:
         return yaml.safe_load(f)
 
 
-# every shipped rcnn config (ladder/1_vanilla_mlp needs the mlp model);
-# the dense head where total correlation is a loss
-SHIPPED_RCNN = (
-    ["2_conditional", "3_mals", "4_adversarial", "5_full"]
+# every shipped config: ladder 1-5 (1_vanilla_mlp the mlp model), sane and
+# sweep; the rcnn's dense head where total correlation is a loss
+SHIPPED = (
+    ["1_vanilla_mlp", "2_conditional", "3_mals", "4_adversarial", "5_full"]
     + [f"sane/{p.stem}" for p in sorted((ROOT / "configs" / "sane").glob("*.yaml"))]
     + [f"sweep/{p.stem}" for p in sorted((ROOT / "configs" / "sweep").glob("*.yaml"))]
 )
 
 
 @pytest.mark.parametrize(
-    "ladder,packed", [(n, "total_correlation" not in _shipped(n)["loss"]) for n in SHIPPED_RCNN]
+    "ladder,packed",
+    [
+        (n, _shipped(n)["model"].get("type", "rcnn") == "rcnn" and "total_correlation" not in _shipped(n)["loss"])
+        for n in SHIPPED
+    ],
 )
 def test_ladder_configs_build_and_train(pair, tmp_path, ladder, packed):
-    """``data_and_model`` and ``train`` take every shipped rcnn config, its
-    data section but the data path included (so the x360 process and the
+    """``data_and_model`` and ``train`` take every shipped config, its data
+    section but the data path included (so the x360 process and the
     encoder view of configs/sane and configs/sweep), at small widths for
-    one epoch: the dense head where total correlation is a loss, else the
-    packed head; the scrubber states of its method map; every loss term of
-    the config in ``metrics.csv`` and finite."""
+    one epoch: the rcnn's dense head where total correlation is a loss,
+    else the packed head, and the mlp model's dense head; the scrubber
+    states of its method map; every loss term of the config in
+    ``metrics.csv`` and finite."""
     import csv
 
     from scrubvae_torch.train.trainer import train
 
     cfg = _shipped(ladder)
     cfg["data"]["data_path"] = pair[0]["data"]["data_path"]
-    cfg["model"].update(z_dim=16, channel=[8, 8, 16, 16, 32], precision="fp32")
+    if cfg["model"]["type"] == "mlp":
+        cfg["model"].update(hidden=[32, 16])
+    else:
+        cfg["model"].update(z_dim=16, channel=[8, 8, 16, 16, 32], precision="fp32")
     cfg["train"].update(num_epochs=1, minimal_test=True, precision="fp32")
     cfg["disentangle"]["features"] = ["avg_speed_3d", "heading"]
     cfg["out_path"] = str(tmp_path)
@@ -283,10 +291,73 @@ def test_ladder_configs_build_and_train(pair, tmp_path, ladder, packed):
     assert ("lambda_qda_ids" in row) == ("qda" in methods)
 
 
-def test_mlp_config_is_refused(pair):
-    """``configs/ladder/1_vanilla_mlp.yaml`` needs the mlp model, which the
-    port has not got yet."""
+def test_vanilla_mlp_config_builds_the_mlp_and_trains(pair, tmp_path):
+    """``configs/ladder/1_vanilla_mlp.yaml`` at its own widths (z 16,
+    hidden 256-128, the diagonal head) through ``data_and_model`` and
+    ``train``: the JAX package's model description and parameter shapes,
+    and the 2 optimizer launches a step of a table holding every leaf (f32
+    weights; bf16 moments for the two 1.45 M-element kernels, f32 for the
+    rest)."""
+    import csv
+
+    from scrubvae_torch.models.mlp_vae import MLPVAE
+    from scrubvae_torch.train.trainer import train
+    from scrubvae_torch.utils.weights import from_jax_variables
+    import flax
+    import jax
+
     cfg = _shipped("1_vanilla_mlp")
     cfg["data"]["data_path"] = pair[0]["data"]["data_path"]
-    with pytest.raises(NotImplementedError, match="rcnn model only"):
-        factory.data_and_model(cfg, data_keys=TRAIN_KEYS, device="cpu")
+    cfg["train"].update(num_epochs=1, minimal_test=True)
+    cfg["out_path"] = str(tmp_path)
+    datasets, model, info = factory.data_and_model(cfg, data_keys=TRAIN_KEYS, device="cpu")
+    _, jmodel, jinfo = jfactory.data_and_model(cfg, data_keys=TRAIN_KEYS)
+    assert info == jinfo
+    assert isinstance(model.vae, MLPVAE) and model.vae.is_diag and model.vae.hidden == (256, 128)
+    assert (model.vae.sigma_key, model.vae.packed_sigma) == ("L", False)
+    batch = datasets["train"].batch(np.arange(2))
+    variables = jmodel.init(jax.random.PRNGKey(0), {k: jnp.asarray(v.numpy()) for k, v in batch.items()}, rng=jax.random.PRNGKey(0))
+    want = from_jax_variables({k: np.array(v) for k, v in flax.traverse_util.flatten_dict(variables, sep="/").items()})
+    assert {k: tuple(v.shape) for k, v in model.state_dict().items()} == {k: tuple(v.shape) for k, v in want.items()}
+    trainer = train(cfg, datasets, model, info, device="cpu")
+    table = trainer.state.opt_state.table
+    assert len(table.w) == len(list(model.parameters())) and len(table.batches) == 2
+    with open(tmp_path / "metrics.csv", newline="") as f:
+        row = next(csv.DictReader(f))
+    assert {"rotation_train", "prior_train", "root_train", "total_train"} <= set(row)
+    assert all(np.isfinite(float(row[k])) for k in row if k.endswith("_train"))
+
+
+def test_transformer_conditional_decode_and_factory_dispatch():
+    """As the JAX package's own dispatch test (tests/test_models.py): a
+    transformer with conditional decoding on avg_speed_3d and the one-hot
+    ids builds, and its training forward has the JAX model's shapes; the
+    factory's defaults are the JAX package's."""
+    from scrubvae_torch.models.transformer import TransformerVAE
+
+    mc = {"type": "transformer", "z_dim": 8, "window": 16, "n_heads": 2, "ff_size": 16, "n_layers": 1}
+    dis = {"method": {"conditional": ["avg_speed_3d", "ids"]}}
+    kw = dict(n_keypts=18, direction_process="midfwd", arena_size=ARENA, discrete_classes={"ids": np.arange(4)})
+    model, info = factory.build_model(mc, dis, device="cpu", **kw)
+    jmodel, jinfo = jfactory.build_model(mc, dis, **kw)
+    assert info == jinfo and isinstance(model.vae, TransformerVAE)
+    assert model.vae.conditional_dim == jmodel.vae.conditional_dim == 3 + 4
+    data = {
+        "x6d": torch.zeros(2, 16, 18, 6), "root": torch.zeros(2, 16, 3),
+        "avg_speed_3d": torch.zeros(2, 3), "ids": torch.tensor([[0], [3]]),
+    }
+    out = model.train()(data, eps=torch.zeros(2, 8), generator=torch.Generator().manual_seed(0))
+    assert out["x6d"].shape == (2, 16, 18, 6) and out["root"].shape == (2, 16, 3)
+    assert out["mu"].shape == (2, 8) and out["L"].shape == (2, 8, 8) and out["var"].shape == (2, 7)
+    assert bool(torch.isfinite(out["x6d"]).all())
+    defaults, _ = factory.build_model({"type": "transformer", "z_dim": 8, "window": 16}, dis, device="cpu", **kw)
+    jdefaults, _ = jfactory.build_model({"type": "transformer", "z_dim": 8, "window": 16}, dis, **kw)
+    enc = defaults.vae.encoder
+    assert len(enc.transformer_encoder.layers) == jdefaults.vae.n_layers == 4
+    layer = enc.transformer_encoder.layers[0]
+    assert (layer.self_attn.n_heads, layer.linear1.out_features, layer.activation, layer.dropout) == (
+        jdefaults.vae.n_heads, jdefaults.vae.ff_size, jdefaults.vae.activation, 0.1,
+    ) == (4, 512, "gelu", 0.1)
+    assert defaults.vae.is_diag == jdefaults.vae.is_diag is False
+    with pytest.raises(ValueError, match="unknown model type"):
+        factory.build_model({"type": "lstm"}, dis, device="cpu", **kw)

@@ -20,7 +20,7 @@ def test_importing_every_module_pulls_in_no_jax():
     for m in (
         "ops.fused_adamw", "train.trainer", "params.read", "params.param_keys", "evals.restrictiveness",
         "train_model", "utils.checkpoint", "utils.logging", "data.pose_io", "evals.metrics", "evals.probes",
-        "evals.latents", "bench",
+        "evals.latents", "bench", "models.base", "models.mlp_vae", "models.transformer",
     ):
         assert "scrubvae_torch." + m in mods, m
     code = (
