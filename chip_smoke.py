@@ -31,16 +31,17 @@ Phases (each one fails the run on error; nothing is caught and swallowed):
    device time by kernel over 5 flagship steps, and the device's idle share
    (torch.profiler; the table goes to ``build/profile_path.txt``).
 7. fit: the training entry point at full flagship width. A YAML config
-   (the path phase's flagship with 20 epochs, validation from epoch 0,
-   without ``minimal_test``, so decodability runs) is read by
+   (the path phase's flagship, epochs 11 to 20 from ``model.start_epoch``
+   10 with nothing loaded, validation from epoch 0, without
+   ``minimal_test``, so decodability runs) is read by
    ``scrubvae_torch.params.read.config`` and trained by
    ``scrubvae_torch.train.trainer.train`` on synthetic splits built in
    memory (train: 4 ids, at least 3 steps an epoch at batch 512; val: 4 ids
    x 2600 frames, 5100 windows, so 100 rows for the regression folds and
    1020 for the classification folds, and a partial tail batch).
-   ``metrics.csv`` must hold 20 rows with a finite ``total_train``, the
-   validation losses and finite generative-restrictiveness R^2 at epochs 5,
-   10, 15 and 20, and there every decodability column (linear and MLP R^2 of
+   ``metrics.csv`` must hold 10 rows with a finite ``total_train``, the
+   validation losses and finite generative-restrictiveness R^2 at epochs 15
+   and 20, and there every decodability column (linear and MLP R^2 of
    avg_speed_3d and heading, logistic and QDA accuracy of the ids) finite,
    with no ``*_nanfolds`` column: a failed fold prints its exception, saves
    that mu to ``chiprun_out/`` and fails the phase. Weights at those epochs
@@ -110,9 +111,10 @@ Phases (each one fails the run on error; nothing is caught and swallowed):
    (channels 16-32-32-64-64, z 32, batch 64, bf16 compute) on the
    structured stream at the size ``tools/run_ladder.py`` gives them (train
    24000 frames, val 8000, 4 ids, seeds 0 and 1; the pose arrays are
-   served from memory in place of the pose files): 2 epochs, numbered 4
-   and 5 (``model.start_epoch: 3`` with nothing loaded, as validation runs
-   at epochs divisible by 5), validating with decodability at 5. Every
+   served from memory in place of the pose files): one epoch, numbered 5
+   (``model.start_epoch: 4`` with nothing loaded, as validation runs at
+   epochs divisible by 5), validating with
+   decodability at 5. Every
    loss, validation and decodability column finite, the optimizer's
    launches a step equal to its dtype variants (plus 5 inner launches for
    4_full), and each run's leaf tables (the outer one and 4_full's
@@ -124,8 +126,8 @@ Phases (each one fails the run on error; nothing is caught and swallowed):
 11. models: the mlp and transformer model families and the scrubber
    branches no shipped config uses. First ``configs/ladder/1_vanilla_mlp.yaml``
    at its own widths (z 16, hidden 256-128, batch 64) on the x360 runs'
-   structured splits, as those runs go (epochs 4 and 5, validation with
-   decodability at 5). Then steps 1 and 2 on the card against the CPU of the
+   structured splits, as those runs go (epoch 5, validation with
+   decodability). Then steps 1 and 2 on the card against the CPU of the
    flagship's method map on the transformer, and of the branches' method
    map on the rcnn, at z 16, window 51, f32, without clip, dropout off
    (batch 16, and 32 for the branches, whose least-squares system needs
@@ -139,7 +141,7 @@ Phases (each one fails the run on error; nothing is caught and swallowed):
    reversal on the ids under ``gr_legacy_norm``, the moving-average class
    means of the ids), each through ``params.read.config`` and
    ``train(config, datasets, model, info)`` on the fit phase's splits for
-   epochs 16 to 20 (validation, decodability and the full state at 20).
+   epochs 19 and 20 (validation, decodability and the full state at 20).
    Every loss column finite at every epoch, the validation losses and
    decodability finite at 20, 2 optimizer launches a step, each run's leaf
    table bitwise against the plain version. For the transformer, its dropout
@@ -151,6 +153,39 @@ Phases (each one fails the run on error; nothing is caught and swallowed):
    each run's step time inside ``fit``, the epoch, validation and
    decodability times and the peak memory beside the card's name.
 
+12. surface: the rest of the training config surface. First steps 1 and 2
+   on the card against the CPU at z 16, window 51, f32, batch 16, without
+   clip, for the low-rank sigma head (rank 8), the beta prior (the CPU's
+   gamma draws injected on the card), sgd and the unfused Adam (a last
+   channel of 128, so fc_sigma keeps bf16 moments; the same host-drawn
+   rounding bits on both sides), held to ``scrubvae_torch.train.parity``.
+   Then, at the flagship's widths (channels 64-1024, window 51, z 128,
+   batch 512, bf16), each through ``params.read.config``,
+   ``factory.data_and_model`` (or ``factory.build_model`` on the fit
+   phase's splits) and ``train(config, datasets, model, info)`` for epochs
+   19 and 20 with deterministic algorithms: (1) the parkinsons data (8
+   animals, raw ids 0 to 3 and 36 to 39, a 40-row ``metadata.csv``) as
+   per-key split files made by the port's ``preprocess_data`` functions on
+   the card and served from memory through ``factory.read_key_h5``, with
+   fluorescence among the scrubbed features: validation and decodability
+   (ids and pd_label) at 20, the recoded ids, pd_label and fluorescence
+   equal to the CPU loader's, the resume from 20 bit for bit; (2) the same
+   recordings as raw pose files, whose columns ride as extras: equal to
+   (1)'s window for window, one epoch; (3) the flagship with
+   ``data.host_stream: true``: its first 3 slab batches, through
+   ``prefetch_to_device``, bitwise equal to the device-resident batches,
+   and its loss columns bitwise equal to a device-resident run's (no
+   decodability there), with the step times and the wait on the copy;
+   (4) the flagship with ``model.prior: beta``, with ``train.optimizer:
+   sgd`` (clip 1) and with ``train.fused_optimizer: false``, validation at
+   20 without decodability, the resume bitwise. The kernel runs 2 launches
+   a step on every fused run and 0 on the sgd and unfused runs. Then
+   ``scrubvae_torch.bench`` (20 timed steps) at its defaults, with
+   ``--sigma-rank 256``, ``--host-stream``, ``--f32-params`` and
+   ``--no-fused --f32-params``. The low-rank (132 leaves), beta-prior (130)
+   and parkinsons tables each go through the kernel in one call, bitwise
+   against the plain version.
+
 Prints one JSON line describing the kernels, the card's name and power limit
 again, then, as its last line, the device record. Needs one CUDA GPU and
 ``nvcc``; exits non-zero without them.
@@ -159,6 +194,7 @@ again, then, as its last line, the device record. Needs one CUDA GPU and
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -177,7 +213,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
 ADAMW_FLOPS_PER_ELEM = 20
 ROOT = pathlib.Path(__file__).resolve().parent
-PHASES = ("kernel", "parity", "path", "fit", "full", "bench", "x360", "models")
+PHASES = ("kernel", "parity", "path", "fit", "full", "bench", "x360", "models", "surface")
 DEVICE = "cuda"
 
 
@@ -642,7 +678,9 @@ def profile_phase(trainer, rows, loss_scale, steps: int = 5) -> None:
 # ---------------------------------------------------------------------------
 
 FIT_EPOCHS = 20
-MALS_FIELDS = ("Sxx0", "Sxy0", "Sxx1", "Sxy1", "lam0", "lam1")
+# epochs 11 to 20 (model.start_epoch 10, nothing loaded): validation and
+# weights at 15 and 20; few epochs keep the whole script within its time
+FIT_START = 10
 DECOD_COLUMNS = tuple(
     f"{m}_{s}"
     for m in (
@@ -679,38 +717,67 @@ def _fit_splits():
     return out
 
 
-def _fit_config(run: pathlib.Path, model: dict = None, **train: dict) -> dict:
-    """Write the flagship's config for ``train``, without ``minimal_test``
-    and with ``model`` and ``train`` entries overridden, to
-    ``run/model_config.yaml`` and read it back through the port's config
+def _write_config(run: pathlib.Path, cfg: dict) -> dict:
+    """``cfg`` to ``run/model_config.yaml``, read back by the port's config
     reader."""
     import yaml
 
     from scrubvae_torch.params import read
 
+    run.mkdir(parents=True)
+    (run / "model_config.yaml").write_text(yaml.safe_dump(dict(cfg, out_path="current")))
+    return read.config(run / "model_config.yaml")
+
+
+def _fit_config(run: pathlib.Path, model: dict = None, **train: dict) -> dict:
+    """Write the flagship's config for ``train``, without ``minimal_test``
+    and with ``model`` and ``train`` entries overridden, to
+    ``run/model_config.yaml`` and read it back through the port's config
+    reader."""
     from scrubvae_torch import bench
 
     cfg = bench.bench_config(512, 51, 128, bench.FULL_CH, True)
     del cfg["train"]["minimal_test"]
     cfg["train"].update({"num_epochs": FIT_EPOCHS, "eval_start_epoch": 0, **train})
     cfg["model"].update(model or {})
-    run.mkdir(parents=True)
-    (run / "model_config.yaml").write_text(yaml.safe_dump(cfg))
-    return read.config(run / "model_config.yaml")
+    return _write_config(run, cfg)
+
+
+def _tensors_of(obj) -> list:
+    """Copies of the tensor fields of a state dataclass, in field order,
+    with a generator's state and an int field as tensors."""
+    out = []
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor):
+            out.append(v.detach().clone())
+        elif isinstance(v, list) and v and isinstance(v[0], torch.Tensor):
+            out += [t.detach().clone() for t in v]
+        elif isinstance(v, torch.Generator):
+            out.append(v.get_state().clone())
+        elif isinstance(v, int) and not isinstance(v, bool):
+            out.append(torch.tensor(v))
+    return out
 
 
 def _trainer_state(trainer) -> dict:
+    """What a resume restores, whatever the optimizer and scrubbers:
+    parameters and buffers, the optimizer's state, every streaming
+    scrubber state, each discriminator's parameters and optimizer state,
+    the MCMI state, the step count, the generator and the batch order."""
     st = trainer.state
-    mals = st.scrub_state["moving_avg_lsq"]["avg_speed_3d"]
     return {
         "params": [p.detach().clone() for p in trainer.model.parameters()],
         "buffers": [b.clone() for b in trainer.model.buffers()],
-        "mu": [m.clone() for m in st.opt_state.mu],
-        "nu": [n.clone() for n in st.opt_state.nu],
-        "count": st.opt_state.count.clone(),
-        "steps": (st.opt_state.step, st.step),
-        "mals": [getattr(mals, f).clone() for f in MALS_FIELDS],
-        "generator": st.generator.get_state().clone(),
+        "opt": _tensors_of(st.opt_state),
+        "scrub": [t for m in sorted(st.scrub_state) for k in sorted(st.scrub_state[m])
+                  for t in _tensors_of(st.scrub_state[m][k])],
+        "adv": [t for k in sorted(st.adv_states)
+                for t in [p.detach().clone() for p in st.adv_states[k].net.parameters()]
+                + _tensors_of(st.adv_states[k].opt_state)],
+        "mi": [] if st.mi_state is None else _tensors_of(st.mi_state),
+        "steps": [torch.tensor(st.step)],
+        "generator": [st.generator.get_state().clone()],
         "np_rng": repr(trainer.np_rng.bit_generator.state),
     }
 
@@ -718,18 +785,12 @@ def _trainer_state(trainer) -> dict:
 def _same_state(a: dict, b: dict) -> list:
     """Names of the parts of two ``_trainer_state`` records that differ."""
     bad = [
-        part for part in ("params", "buffers", "mu", "nu", "mals")
+        part for part in ("params", "buffers", "opt", "scrub", "adv", "mi", "steps", "generator")
         if len(a[part]) != len(b[part])
         or not all(
             bits_equal(x, y) if x.is_floating_point() else torch.equal(x, y) for x, y in zip(a[part], b[part])
         )
     ]
-    if not torch.equal(a["count"], b["count"]):
-        bad.append("count")
-    if a["steps"] != b["steps"]:
-        bad.append("steps")
-    if not torch.equal(a["generator"], b["generator"]):
-        bad.append("generator")
     if a["np_rng"] != b["np_rng"]:
         bad.append("np_rng")
     return bad
@@ -852,7 +913,7 @@ def decodability_card_vs_cpu(z: np.ndarray, val_ds, window: int) -> dict:
 
 
 def fit_phase(card: str) -> dict:
-    """``train(config, datasets, model, info)`` for 20 epochs at full
+    """``train(config, datasets, model, info)`` for epochs 11 to 20 at full
     flagship width, then a resume from epoch 20 for epoch 21 (see the
     module docstring)."""
     import csv
@@ -871,7 +932,7 @@ def fit_phase(card: str) -> dict:
         if n_train // 512 < 3 or n_val < 5000 or n_val % 512 == 0:
             raise AssertionError(f"fit: {n_train} train and {n_val} val windows")
         run = tmp / "run"
-        config = _fit_config(run)
+        config = _fit_config(run, model={"start_epoch": FIT_START})
 
         def build():
             return factory.build_model(
@@ -914,7 +975,7 @@ def fit_phase(card: str) -> dict:
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         ended = _trainer_state(trainer)
 
-        steps = trainer.steps_per_epoch * FIT_EPOCHS
+        steps = trainer.steps_per_epoch * (FIT_EPOCHS - FIT_START)
         params = list(trainer.model.parameters())
         table = trainer.state.opt_state.table
         table.check_storage(params, trainer.state.opt_state.mu, trainer.state.opt_state.nu)
@@ -926,7 +987,7 @@ def fit_phase(card: str) -> dict:
             raise AssertionError(f"fit: {launches} optimizer launches in {steps} steps; expected 2 a step")
         with open(run / "metrics.csv", newline="") as f:
             rows = list(csv.DictReader(f))
-        if [int(r["epoch"]) for r in rows] != list(range(1, FIT_EPOCHS + 1)):
+        if [int(r["epoch"]) for r in rows] != list(range(FIT_START + 1, FIT_EPOCHS + 1)):
             raise AssertionError(f"fit: metrics.csv epochs {[r['epoch'] for r in rows]}")
         test_keys = ("total_test", "r2_gen_restrict_avg_speed_3d_test", "r2_gen_restrict_heading_test")
         for r in rows:
@@ -952,10 +1013,10 @@ def fit_phase(card: str) -> dict:
             )
         card_cpu = decodability_card_vs_cpu(z20, datasets["val"], info["window"])
         log("fit decodability, card against CPU: " + json.dumps(card_cpu))
-        if list(factory.all_saved_epochs(run)) != [5, 10, 15, 20] or sorted(
+        if list(factory.all_saved_epochs(run)) != [15, 20] or sorted(
             p.name for p in (run / "checkpoints").iterdir()
         ) != ["epoch_20.pt"]:
-            raise AssertionError("fit: weights at 5, 10, 15, 20 and the full state at 20 expected")
+            raise AssertionError("fit: weights at 15 and 20 and the full state at 20 expected")
 
         # resume from epoch 20
         config = _fit_config(
@@ -976,13 +1037,13 @@ def fit_phase(card: str) -> dict:
 
         epoch_ms = timer.mean_ms("train_epoch")
         rec = {
-            "card": card, "epochs": FIT_EPOCHS, "train_windows": n_train, "val_windows": n_val,
+            "card": card, "epochs": FIT_EPOCHS - FIT_START, "train_windows": n_train, "val_windows": n_val,
             "steps_per_epoch": trainer.steps_per_epoch, "fit_s": fit_s,
             "train_epoch_ms": epoch_ms, "step_ms": epoch_ms / trainer.steps_per_epoch,
             "val_epoch_ms": timer.mean_ms("val_epoch"), "val_epochs": len(timer.times["val_epoch"]),
             "decodability_ms_per_val_epoch": timer.mean_ms("decodability"),
             "decodability_ms_per_val_epoch_by_probe": decod_ms,
-            "decodability_epoch20": {k: float(rows[FIT_EPOCHS - 1][k]) for k in DECOD_COLUMNS},
+            "decodability_epoch20": {k: float(rows[-1][k]) for k in DECOD_COLUMNS},
             "decodability_card_vs_cpu": card_cpu,
             "save_weights_ms": timer.mean_ms("save_weights"),
             "weights_bytes": (run / "weights" / "epoch_20.pt").stat().st_size,
@@ -1263,34 +1324,6 @@ def inner_adamw_check(adv_state, label: str = "discriminator") -> dict:
     return rec
 
 
-def _full_state(trainer) -> dict:
-    """``_trainer_state`` plus the QDA state, the discriminator's parameters,
-    moments and counts, the MCMI state and the batch-order generator."""
-    from scrubvae_torch.train import parity
-
-    st = trainer.state
-    adv = st.adv_states[ADV_FEAT]
-    out = _trainer_state(trainer)
-    out.update(
-        qda=[getattr(st.scrub_state["qda"]["ids"], f).clone() for f in parity.QDA_KEYS],
-        adv=[p.detach().clone() for p in adv.net.parameters()] + [m.clone() for m in adv.opt_state.mu + adv.opt_state.nu],
-        mi=[getattr(st.mi_state, f).clone() for f in parity.MI_KEYS],
-        adv_counts=(adv.opt_state.count.clone(), adv.opt_state.step),
-    )
-    return out
-
-
-def _same_full_state(a: dict, b: dict) -> list:
-    bad = _same_state(a, b)
-    bad += [
-        part for part in ("qda", "adv", "mi")
-        if len(a[part]) != len(b[part]) or not all(bits_equal(x, y) for x, y in zip(a[part], b[part]))
-    ]
-    if not torch.equal(a["adv_counts"][0], b["adv_counts"][0]) or a["adv_counts"][1] != b["adv_counts"][1]:
-        bad.append("adv_counts")
-    return bad
-
-
 def full_phase(card: str) -> dict:
     """``configs/ladder/5_full.yaml`` at its full width through
     ``train(config, datasets, model, info)`` for 20 epochs on the fit
@@ -1338,7 +1371,7 @@ def full_phase(card: str) -> dict:
         fit_s = time.perf_counter() - t0
         launches = fa.fused_adamw_multi.launches + fa.fused_adamw_leaf.launches
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        at20 = _full_state(trainer)
+        at20 = _trainer_state(trainer)
 
         steps = trainer.steps_per_epoch * FULL_EPOCHS
         outer = trainer.state.opt_state.table
@@ -1398,7 +1431,7 @@ def full_phase(card: str) -> dict:
         try:
             trainer.start_epoch = FULL_EPOCHS
             trainer.fit(FULL_EPOCHS + 1)
-            at21 = _full_state(trainer)
+            at21 = _trainer_state(trainer)
             del trainer
             resume_cfg = _full_config(
                 tmp / "resume", num_epochs=FULL_EPOCHS + 1,
@@ -1406,11 +1439,11 @@ def full_phase(card: str) -> dict:
             )
             model, info = build()
             resumed = trainer_mod.Trainer(resume_cfg, datasets, model, info, device=DEVICE)
-            bad = _same_full_state(_full_state(resumed), at20)
+            bad = _same_state(_trainer_state(resumed), at20)
             if bad:
                 raise AssertionError(f"full: the state restored at epoch {FULL_EPOCHS} differs in {bad}")
             resumed.fit()
-            bad = _same_full_state(_full_state(resumed), at21)
+            bad = _same_state(_trainer_state(resumed), at21)
             if bad:
                 raise AssertionError(f"full: epoch {FULL_EPOCHS + 1} after the resume differs in {bad}")
         finally:
@@ -1461,9 +1494,10 @@ def bench_phase() -> dict:
 # (seed, frames) per split, 4 ids
 X360_SPLITS = {"train": (0, 24000), "val": (1, 8000)}
 X360_RUNS = ("sweep/8_structural", "sane/4_full")
-# 2 epochs: validation runs at epochs divisible by 5, so the runs start at
-# epoch 3 (model.start_epoch, nothing loaded) and validate at 5
-X360_START, X360_EPOCHS = 3, 5
+# one epoch, to keep the whole script within its time: validation runs at
+# epochs divisible by 5, so the runs start at epoch 4 (model.start_epoch,
+# nothing loaded) and validate at 5
+X360_START, X360_EPOCHS = 4, 5
 ENC_KEYS = ("x6d_enc", "root_enc")
 ARENA_KEYS = ("root", "root_enc", "raw_pose")
 
@@ -1532,8 +1566,8 @@ def x360_windows_card_vs_cpu() -> dict:
 def _shipped_run(name: str, arrays: dict, card: str) -> dict:
     """``configs/{name}.yaml`` (its widths, batch and precision) through
     ``params.read.config``, ``factory.data_and_model`` and ``train(config,
-    datasets, model, info)`` for 2 epochs on ``arrays``, validating with
-    decodability at the second (see ``X360_START``). The card's machine
+    datasets, model, info)`` for the epochs after ``X360_START`` on
+    ``arrays``, validating with decodability at 5. The card's machine
     has no ``h5py``: the split's pose file is an empty placeholder and
     ``factory.read_pose_h5`` serves its arrays from memory."""
     import csv
@@ -1655,9 +1689,9 @@ def x360_phase(card: str) -> dict:
 
 MLP_CONFIG = "ladder/1_vanilla_mlp"
 TRANSFORMER = {"type": "transformer", "z_dim": 128, "window": 51, "diag": False}
-# the transformer and branches runs train epochs 16 to 20 (model.start_epoch
-# 15, nothing loaded): validation, decodability and the full state at 20
-MODELS_START, MODELS_EPOCHS = 15, 20
+# the transformer and branches runs train epochs 19 and 20 (model.start_epoch
+# 18, nothing loaded): validation, decodability and the full state at 20
+MODELS_START, MODELS_EPOCHS = 18, 20
 # every branch this phase adds: MALS at polynomial 2, direct least squares
 # with its bias column (a negative weight), gradient reversal on the ids
 # under gr_legacy_norm and the moving-average class means of the ids
@@ -1926,7 +1960,7 @@ def dropout_statistics(trainer, batch: dict) -> dict:
 
 def _models_run(label: str, config: dict, datasets: dict, card: str, transformer: bool = False) -> dict:
     """``config`` through ``params.read.config`` and ``train(config,
-    datasets, model, info)`` on the fit phase's splits for epochs 16 to 20
+    datasets, model, info)`` on the fit phase's splits for epochs 19 and 20
     (validation, decodability and the full state at 20): every loss column
     finite at every epoch, the validation losses and decodability finite at
     20, the optimizer's launches a step equal to its table's dtype
@@ -1938,22 +1972,15 @@ def _models_run(label: str, config: dict, datasets: dict, card: str, transformer
     generator's included."""
     import csv
 
-    import yaml
-
     from scrubvae_torch import bench, factory
     from scrubvae_torch.ops import fused_adamw as fa
-    from scrubvae_torch.params import read
     from scrubvae_torch.train import trainer as trainer_mod
 
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_models_"))
     timer = _Timer()
     try:
         def read_config(run, **model):
-            cfg = dict(config, out_path="current")
-            cfg["model"] = dict(config["model"], **model)
-            run.mkdir(parents=True)
-            (run / "model_config.yaml").write_text(yaml.safe_dump(cfg))
-            return read.config(run / "model_config.yaml")
+            return _write_config(run, dict(config, model=dict(config["model"], **model)))
 
         run = tmp / "run"
         cfg = read_config(run, start_epoch=MODELS_START)
@@ -2088,11 +2115,615 @@ def models_phase(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the rest of the training config surface
+# ---------------------------------------------------------------------------
+
+# epochs 19 and 20 (model.start_epoch 18, nothing loaded): validation, and
+# the full state, at 20
+SURFACE_START, SURFACE_EPOCHS = 18, 20
+PARKINSONS_RAW_IDS = (0, 1, 2, 3, 36, 37, 38, 39)  # recoded 0 to 3; pd_label 0, 0, 0, 0, 1, 1, 1, 1
+PARKINSONS_KEYS = ("x6d", "root", "offsets", "target_pose", "avg_speed_3d", "heading", "fluorescence", "pd_label")
+PARKINSONS_COLUMNS = ("ids", "pd_label", "fluorescence")
+PD_DECOD_COLUMNS = tuple(f"acc_{k}_{m}_{s}" for k in ("ids", "pd_label") for m in ("log", "qda") for s in ("mean", "std"))
+SURFACE_RANK = 256
+SURFACE_BATCH, SURFACE_Z = 512, 128  # the flagship's
+SURFACE_VARIANTS = 2  # the kernel's launches a step at these widths: bf16 and f32 leaves
+# (leaves, parameters) of the flagship's tables (bench.build at full width)
+LOW_RANK_TABLE = (132, 22_654_604)
+BETA_TABLE = (130, 20_008_396)
+SURFACE_BENCH = (("default", []), ("sigma_rank", ["--sigma-rank"]), ("host_stream", ["--host-stream"]),
+                 ("f32_params", ["--f32-params"]), ("no_fused", ["--no-fused", "--f32-params"]))
+SURFACE_BENCH_STEPS = ["--steps", "20", "--warmup", "3"]
+SURFACE_SLAB_BATCHES = 3
+
+
+def parkinsons_config(data_path) -> dict:
+    """The flagship's config on the parkinsons data, fluorescence among the
+    scrubbed features (linear, MALS and gradient reversal on avg_speed_3d
+    and fluorescence, decoding conditional on avg_speed_3d and heading),
+    epochs 19 and 20 with validation and decodability at 20."""
+    from scrubvae_torch import bench
+
+    cfg = bench.bench_config(SURFACE_BATCH, 51, SURFACE_Z, bench.FULL_CH, True)
+    del cfg["train"]["minimal_test"]
+    cfg["data"].update(dataset="parkinsons", data_path=str(data_path) + "/")
+    scrubbed = ["avg_speed_3d", "fluorescence"]
+    cfg["disentangle"]["method"].update(linear=scrubbed, moving_avg_lsq=scrubbed, grad_reversal=scrubbed)
+    cfg["disentangle"]["features"] = ["avg_speed_3d", "heading", "fluorescence"]
+    cfg["loss"].update(fluorescence_lin=1.0, fluorescence_mals=0.1, fluorescence_gr=1.0)
+    cfg["model"]["start_epoch"] = SURFACE_START
+    cfg["train"].update(num_epochs=SURFACE_EPOCHS, eval_start_epoch=0)
+    return cfg
+
+
+def parkinsons_stream(split: str):
+    """8 animals, raw ids 0 to 3 and 36 to 39: train 8 x 600 frames (2200
+    windows), val 8 x 1300 (5100), as the fit phase's splits."""
+    from scrubvae_torch.data.skeleton import load_skeleton
+    from scrubvae_torch.data.synthetic import synthetic_pose_stream
+
+    seed, per_id = {"train": (0, 600), "val": (1, 1300)}[split]
+    skel = load_skeleton(ROOT / "configs" / "mouse_skeleton.yaml")
+    pose, ids = synthetic_pose_stream(skel, n_frames=per_id * 8, n_ids=8, seed=seed)
+    return skel, pose, np.asarray(PARKINSONS_RAW_IDS)[ids]
+
+
+def _launches() -> int:
+    from scrubvae_torch.ops import fused_adamw as fa
+
+    return fa.fused_adamw_multi.launches + fa.fused_adamw_leaf.launches
+
+
+def _reset_launches() -> None:
+    from scrubvae_torch.ops import fused_adamw as fa
+
+    fa.fused_adamw_multi.launches = 0
+    fa.fused_adamw_leaf.launches = 0
+
+
+def _surface_run(label: str, cfg: dict, build, card: str, run: pathlib.Path, fused: bool = True,
+                 resume: bool = True, decod_columns=DECOD_COLUMNS) -> tuple:
+    """``build(cfg) -> (datasets, model, info)`` (``factory.data_and_model``
+    on the caller's data), then ``train(cfg, datasets, model, info)``:
+    every loss column finite, the validation losses and the decodability
+    columns (unless ``train.minimal_test``) finite at the last epoch, the
+    fused kernel's launches a step equal to its table's dtype variants (2),
+    or 0 when ``fused`` is False, the full state at 20; with ``resume``,
+    the run's own epoch 21 against a resume from epoch 20, bit for bit.
+    Deterministic algorithms throughout. Returns (record, trainer,
+    datasets)."""
+    import csv
+
+    from scrubvae_torch.train import trainer as trainer_mod
+
+    timer = _Timer()
+    try:
+        datasets, model, info = build(cfg)
+        for owner, fn, tag in (
+            (trainer_mod.Trainer, "train_epoch", "train_epoch"),
+            (trainer_mod.Trainer, "test_epoch", "val_epoch"),
+            (trainer_mod.Trainer, "decodability_metrics", "decodability"),
+        ):
+            timer.wrap(owner, fn, tag)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True)
+        t0 = time.perf_counter()
+        trainer = trainer_mod.train(cfg, datasets, model, info, device=DEVICE)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = _launches()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        epochs = int(cfg["train"]["num_epochs"]) - SURFACE_START
+        steps = trainer.steps_per_epoch * epochs
+        per_step = len(trainer.state.opt_state.table.batches) if fused else 0
+        if launches != per_step * steps or (fused and per_step != SURFACE_VARIANTS):
+            raise AssertionError(f"surface {label}: {launches} kernel launches in {steps} steps; expected {per_step} a step")
+        with open(run / "metrics.csv", newline="") as f:
+            rows = list(csv.DictReader(f))
+        last = rows[-1]
+        loss_cols = [f"{k}_train" for k in cfg["loss"]] + ["total_train"]
+        tests = [k for k in last if k.endswith("_test")]
+        decod = [] if cfg["train"].get("minimal_test") or not tests else list(decod_columns)
+        bad = [(r["epoch"], k, r.get(k)) for r in rows for k in loss_cols if not (r.get(k) and math.isfinite(float(r[k])))]
+        bad += [(k, last.get(k)) for k in tests + decod if not (last.get(k) and math.isfinite(float(last[k])))]
+        bad += [k for k in last if k.endswith("_nanfolds")]
+        if bad or (epochs > 1 and not tests):
+            raise AssertionError(f"surface {label}: metrics.csv columns not finite or missing: {bad}")
+        epoch_ms = timer.mean_ms("train_epoch")
+        rec = {
+            "run": label, "card": card, "epochs": epochs, "train_windows": len(datasets["train"]),
+            "val_windows": len(datasets["val"]), "batch": trainer.batch_size, "steps_per_epoch": trainer.steps_per_epoch,
+            "dataset": type(datasets["train"]).__name__, "optimizer": type(trainer.tx).__name__,
+            "leaves": len(list(trainer.model.parameters())),
+            "parameters": sum(p.numel() for p in trainer.model.parameters()),
+            "fit_s": fit_s, "train_epoch_ms": epoch_ms, "step_ms": epoch_ms / trainer.steps_per_epoch,
+            "val_epoch_ms": timer.mean_ms("val_epoch") if "val_epoch" in timer.times else None,
+            "decodability_ms": timer.mean_ms("decodability") if decod else None,
+            "peak_mem_gib": peak_gib, "kernel_launches": launches, "launches_per_step": launches / steps,
+            "loss_train": {k: [r[k] for r in rows] for k in loss_cols},
+            "validation": {k: float(last[k]) for k in tests},
+            "decodability": {k: float(last[k]) for k in decod},
+        }
+        if resume:
+            if sorted(p.name for p in (run / "checkpoints").iterdir()) != ["epoch_20.pt"]:
+                raise AssertionError(f"surface {label}: the full state at epoch 20 expected")
+            at20 = _trainer_state(trainer)
+            trainer.start_epoch = SURFACE_EPOCHS
+            trainer.fit(SURFACE_EPOCHS + 1)
+            at21 = _trainer_state(trainer)
+            rcfg = _write_config(run.parent / f"{run.name}_resume", dict(cfg, model=dict(
+                cfg["model"], load_model=str(run), start_epoch=SURFACE_EPOCHS)))
+            rcfg["train"]["num_epochs"] = SURFACE_EPOCHS + 1
+            rdatasets, rmodel, rinfo = build(rcfg)
+            resumed = trainer_mod.Trainer(rcfg, rdatasets, rmodel, rinfo, device=DEVICE)
+            bad = _same_state(_trainer_state(resumed), at20)
+            if bad:
+                raise AssertionError(f"surface {label}: the state restored at epoch 20 differs in {bad}")
+            resumed.fit()
+            bad = _same_state(_trainer_state(resumed), at21)
+            if bad:
+                raise AssertionError(f"surface {label}: epoch 21 after the resume differs in {bad}")
+            rec["resume_bitwise_equal"] = True
+        log(f"surface {label} train entry point: " + json.dumps(rec))
+        return rec, trainer, datasets
+    finally:
+        timer.undo()
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+
+
+def _columns(ds) -> dict:
+    """The recoded ids, pd_label and fluorescence of every window, on the CPU."""
+    out = ds.batch(torch.arange(len(ds), device=ds.device))
+    return {k: out[k].cpu() for k in PARKINSONS_COLUMNS}
+
+
+def parkinsons_runs(card: str, tmp: pathlib.Path) -> dict:
+    """Run 1: the parkinsons split files made by the port's
+    ``preprocess_data`` functions on the card and served from memory
+    through ``factory.read_key_h5``, trained with validation and
+    decodability, resumed bitwise; the recoded columns equal to the CPU's
+    loader's on the same files. Run 2: the same recordings as raw pose
+    files (``factory.read_pose_h5``), a ``StreamDataset`` with the columns
+    as extras: equal to run 1's, window for window; one epoch trained."""
+    import shutil as _shutil
+
+    from scrubvae_torch import factory, preprocess_data
+
+    streams = {split: parkinsons_stream(split) for split in ("train", "val")}
+    t0 = time.perf_counter()
+    files = {split: preprocess_data.preprocess_split(pose, ids, skel, device=DEVICE)
+             for split, (skel, pose, ids) in streams.items()}
+    torch.cuda.synchronize()
+    preprocess_s = time.perf_counter() - t0
+    data = tmp / "parkinsons_data"
+    for split in streams:
+        (data / "parkinsons" / split).mkdir(parents=True)
+    _shutil.copy(ROOT / "configs" / "mouse_skeleton.yaml", data / "mouse_skeleton.yaml")
+    (data / "parkinsons" / "metadata.csv").write_text(
+        "Subject,Fluorescence\n" + "".join(f"{i},{1.0 + 0.37 * i}\n" for i in range(40))
+    )
+    read_key_h5, read_pose_h5 = factory.read_key_h5, factory.read_pose_h5
+
+    def build(cfg):
+        return factory.data_and_model(cfg, data_keys=PARKINSONS_KEYS, use_default_val_keys=False, device=DEVICE)
+
+    try:
+        factory.read_key_h5 = lambda path, key: files[pathlib.Path(path).parent.name][key]
+        cfg = _write_config(tmp / "parkinsons", parkinsons_config(data))
+        per_key, trainer, datasets = _surface_run("parkinsons per-key", cfg, build, card, tmp / "parkinsons",
+                                                  decod_columns=PD_DECOD_COLUMNS)
+        per_key["preprocess_s"] = preprocess_s
+        per_key["leaf_set"] = leaf_set_check(trainer, *_outer_hyper(), label="parkinsons")
+        cols = {split: _columns(ds) for split, ds in datasets.items()}
+        del trainer, datasets
+        torch.cuda.empty_cache()
+        cpu = {split: _columns(factory.mouse_data(cfg["data"], split, data_keys=PARKINSONS_KEYS, device="cpu"))
+               for split in files}
+        for split in files:
+            for k in PARKINSONS_COLUMNS:
+                if not torch.equal(cols[split][k], cpu[split][k]):
+                    raise AssertionError(f"parkinsons {split}: the card's {k} column differs from the CPU's")
+        raw = cols["val"]["ids"]
+        per_key["columns"] = {
+            "ids": sorted(set(cols["train"]["ids"].tolist())), "pd_label": sorted(set(cols["train"]["pd_label"][:, 0].tolist())),
+            "fluorescence": sorted(set(cols["train"]["fluorescence"][:, 0].tolist())), "val_windows": len(raw),
+        }
+        factory.read_key_h5 = read_key_h5
+
+        for split in streams:
+            (data / "parkinsons" / split / "pose.h5").touch()
+        factory.read_pose_h5 = lambda path: streams[pathlib.Path(path).parent.name][1:]
+        cfg2 = parkinsons_config(data)
+        cfg2["train"].update(num_epochs=SURFACE_START + 1)
+        cfg2 = _write_config(tmp / "parkinsons_raw", cfg2)
+        raw_rec, trainer, datasets = _surface_run("parkinsons raw pose", cfg2, build, card, tmp / "parkinsons_raw",
+                                                  resume=False, decod_columns=PD_DECOD_COLUMNS)
+        for split, ds in datasets.items():
+            if set(ds.extras) != set(PARKINSONS_COLUMNS):
+                raise AssertionError(f"parkinsons raw {split}: extras {sorted(ds.extras)}")
+            got = _columns(ds)
+            for k in PARKINSONS_COLUMNS:
+                if not torch.equal(got[k], cols[split][k]):
+                    raise AssertionError(f"parkinsons {split}: the raw-pose {k} column differs from the per-key one")
+        raw_rec["columns_equal_per_key"] = True
+        del trainer, datasets
+        torch.cuda.empty_cache()
+        return {"per_key": per_key, "raw_pose": raw_rec}
+    finally:
+        factory.read_key_h5, factory.read_pose_h5 = read_key_h5, read_pose_h5
+
+
+def host_stream_runs(card: str, tmp: pathlib.Path) -> dict:
+    """The flagship with ``data.host_stream: true`` on the fit phase's
+    splits (served through ``factory.read_pose_h5``): the first slab
+    batches of an epoch, through ``prefetch_to_device`` on its side stream,
+    bitwise equal to the device-resident dataset's for the same indices;
+    then its epochs 19 and 20 (validation and decodability at 20) against
+    the device-resident run from the same seeds (``minimal_test``), the
+    loss columns bit for bit (deterministic algorithms). Prints the step
+    times with and without the stream, the consumer's wait on the copy a
+    step, and per slab its size, the worker's gather and copy issue (host
+    clock) and the copy itself (device)."""
+    import shutil as _shutil
+
+    from scrubvae_torch import factory
+    from scrubvae_torch.data.dataset import epoch_index_matrix
+    from scrubvae_torch.data.hoststream import prefetch_to_device
+    from scrubvae_torch.data.skeleton import load_skeleton
+    from scrubvae_torch.data.synthetic import synthetic_pose_stream
+
+    skel = load_skeleton(ROOT / "configs" / "mouse_skeleton.yaml")
+    arrays = {}
+    for split, seed, per_id in (("train", 0, 1200), ("val", 1, 2600)):
+        arrays[split] = synthetic_pose_stream(skel, n_frames=per_id * 4, n_ids=4, seed=seed)
+    data = tmp / "stream_data"
+    for split in arrays:
+        (data / "synthetic" / split).mkdir(parents=True)
+        (data / "synthetic" / split / "pose.h5").touch()
+    _shutil.copy(ROOT / "configs" / "mouse_skeleton.yaml", data / "mouse_skeleton.yaml")
+    read_pose_h5 = factory.read_pose_h5
+    keys = ("x6d", "root", "offsets", "target_pose", "avg_speed_3d", "heading")
+
+    def config(run, host: bool):
+        from scrubvae_torch import bench
+
+        cfg = bench.bench_config(SURFACE_BATCH, 51, SURFACE_Z, bench.FULL_CH, True)
+        cfg["data"].update(data_path=str(data) + "/", host_stream=host)
+        cfg["model"]["start_epoch"] = SURFACE_START
+        cfg["train"].update(num_epochs=SURFACE_EPOCHS, eval_start_epoch=0, minimal_test=None if host else True)
+        return _write_config(run, cfg)
+
+    def build(cfg):
+        return factory.data_and_model(cfg, data_keys=keys, device=DEVICE)
+
+    try:
+        factory.read_pose_h5 = lambda path: arrays[pathlib.Path(path).parent.name]
+        hcfg = config(tmp / "host", True)
+        dcfg = config(tmp / "device", False)
+        hds = build(hcfg)[0]["train"]
+        dds = build(dcfg)[0]["train"]
+        rows = epoch_index_matrix(len(dds), SURFACE_BATCH, np.random.default_rng(0))[:SURFACE_SLAB_BATCHES]
+        for i, slab in enumerate(prefetch_to_device(hds.epoch_slabs(rows), size=2, device=DEVICE)):
+            got = hds.make_batch_fn()(slab)
+            want = dds.batch(torch.as_tensor(rows[i], device=DEVICE))
+            bad = [k for k in want if not (bits_equal(got[k], want[k]) if want[k].is_floating_point() else torch.equal(got[k], want[k]))]
+            if bad or set(got) != set(want):
+                raise AssertionError(f"host stream: slab batch {i} differs from the device-resident batch in {bad}")
+        del hds, dds
+        host, htrainer, _ = _surface_run("host stream", hcfg, build, card, tmp / "host", resume=False)
+        stats = dict(htrainer.stream_stats)
+        # the same gathers alone on this thread, with the card idle
+        t0 = time.perf_counter()
+        slabs = [htrainer.train_ds.host_batch(r) for r in rows]
+        gather_alone_ms = (time.perf_counter() - t0) / len(rows) * 1e3
+        slab_mb = sum(v.numel() * v.element_size() for v in slabs[0].values()) / 1e6
+        del slabs
+        del htrainer
+        device, dtrainer, _ = _surface_run("device resident", dcfg, build, card, tmp / "device", resume=False)
+        del dtrainer
+        torch.cuda.empty_cache()
+    finally:
+        factory.read_pose_h5 = read_pose_h5
+    if host["loss_train"] != device["loss_train"]:
+        raise AssertionError(f"host stream: losses {host['loss_train']} against device-resident {device['loss_train']}")
+    rec = {
+        "slab_batches_bitwise": SURFACE_SLAB_BATCHES, "losses_bitwise_equal": True, "card": card,
+        "step_ms_host_stream": host["step_ms"], "step_ms_device_resident": device["step_ms"],
+        "copy_wait_ms_per_step": stats["wait_s"] / stats["items"] * 1e3, "slabs": stats["items"],
+        # the worker's side of each slab: the gather on the host, the copy's
+        # issue (host clock) and the copy itself (device, timing events)
+        "gather_ms_per_slab": stats["gather_s"] / stats["items"] * 1e3,
+        "issue_ms_per_slab": stats["issue_s"] / stats["items"] * 1e3,
+        "copy_device_ms_per_slab": stats["copy_ms"] / stats["items"], "slab_mb": slab_mb,
+        "gather_alone_ms_per_slab": gather_alone_ms,
+        "host_stream_run": host, "device_run": device,
+    }
+    log("surface host stream against device resident: " + json.dumps({k: v for k, v in rec.items() if not k.endswith("_run")}))
+    return rec
+
+
+def surface_bench() -> dict:
+    """``python -m scrubvae_torch.bench`` (20 timed steps after 3) at its
+    defaults, with ``--sigma-rank 256``, ``--host-stream``,
+    ``--f32-params`` and ``--no-fused --f32-params``, one after another on
+    this card; the kernel's launches a step (2, and 0 with ``--no-fused``),
+    the tables' leaves and parameters. The low-rank table (132 leaves,
+    22,654,604 parameters) goes through the kernel in one call, bitwise
+    against the plain version."""
+    from scrubvae_torch import bench
+
+    out = {}
+    for name, flags in SURFACE_BENCH:
+        args = bench.parse_args(SURFACE_BENCH_STEPS + flags + ([str(SURFACE_RANK)] if name == "sigma_rank" else []))
+        _reset_launches()
+        rec = bench.run(args)
+        launches = _launches()
+        steps = args.warmup + args.steps + 1
+        want = 0 if args.no_fused else SURFACE_VARIANTS
+        if launches != want * steps or not math.isfinite(rec["total"]):
+            raise AssertionError(f"bench {name}: {launches} kernel launches in {steps} steps, total {rec['total']}")
+        rec["launches_per_step"] = launches / steps
+        if name == "sigma_rank":
+            if (rec["leaves"], rec["parameters"]) != LOW_RANK_TABLE:
+                raise AssertionError(f"bench sigma_rank: {rec['leaves']} leaves, {rec['parameters']} parameters")
+            trainer, _ = bench.build(SURFACE_BATCH, 51, SURFACE_Z, bench.FULL_CH, DEVICE, sigma_rank=SURFACE_RANK)
+            rec["leaf_set"] = leaf_set_check(trainer, *_outer_hyper(), label="low-rank")
+            del trainer
+        torch.cuda.empty_cache()
+        log(f"surface bench {name}: " + json.dumps(rec))
+        out[name] = rec
+    return out
+
+
+def _flagship_variant(tmp: pathlib.Path, label: str, model: dict = None, **train) -> dict:
+    from scrubvae_torch import bench
+
+    cfg = bench.bench_config(SURFACE_BATCH, 51, SURFACE_Z, bench.FULL_CH, train.pop("bf16_params", True))
+    cfg["model"].update(model or {}, start_epoch=SURFACE_START)
+    cfg["train"].update(num_epochs=SURFACE_EPOCHS, eval_start_epoch=0, **train)
+    return _write_config(tmp / label, cfg)
+
+
+def optimizer_prior_runs(card: str, tmp: pathlib.Path) -> dict:
+    """The flagship with ``model.prior: beta`` (dense head), with
+    ``train.optimizer: sgd`` (``train.clip_norm: 1``) and with
+    ``train.fused_optimizer: false``
+    (f32 storage, bf16 moments on the leaves of 65536 or more): epochs 19
+    and 20 on the fit phase's splits, validation at 20 (no decodability:
+    ``minimal_test``), the resume bitwise; the kernel's launches 2 a step
+    for the beta prior and 0 for sgd and the unfused Adam. The beta-prior
+    table (130 leaves, 20,008,396 parameters) goes through the kernel in
+    one call, bitwise against the plain version."""
+    from scrubvae_torch import factory
+
+    datasets = _fit_splits()
+    runs = {
+        "beta_prior": (dict(prior="beta"), dict(), True),
+        # at the default clip (1e6) one sgd step at lr 1e-4 on the summed
+        # losses (root about 2e6) blows the root loss up, in JAX as in the
+        # port (tests/test_torch_port_sgd_steps.py): the global-norm clip at 1
+        "sgd": (None, dict(optimizer="sgd", bf16_params=False, clip_norm=1.0), False),
+        "unfused_adam": (None, dict(fused_optimizer=False, bf16_params=False), False),
+    }
+    out = {}
+    for label, (model, train, fused) in runs.items():
+        cfg = _flagship_variant(tmp, label, model, minimal_test=True, **train)
+
+        def build(c):
+            m, info = factory.build_model(
+                c["model"], c["disentangle"], n_keypts=18, direction_process="midfwd", arena_size=datasets["train"].arena_size,
+                discrete_classes=datasets["train"].discrete_classes, loss_keys=c["loss"].keys(), device=DEVICE,
+            )
+            return datasets, m, info
+
+        rec, trainer, _ = _surface_run(label, cfg, build, card, tmp / label, fused=fused)
+        if label == "beta_prior":
+            if trainer.model.vae.packed_sigma or (rec["leaves"], rec["parameters"]) != BETA_TABLE:
+                raise AssertionError(f"beta prior: {rec['leaves']} leaves, {rec['parameters']} parameters")
+            rec["leaf_set"] = leaf_set_check(trainer, *_outer_hyper(), label="beta prior")
+        else:
+            rec["moment_dtypes"] = sorted({str(m.dtype) for m in getattr(trainer.state.opt_state, "mu", [])})
+        del trainer
+        torch.cuda.empty_cache()
+        out[label] = rec
+    return out
+
+
+def _surface_parity_run(device: str, config: dict, rows: np.ndarray, draws: list, bits: list = None) -> dict:
+    """Two steps of ``config`` on ``device`` from the seed's weights (drawn
+    on the CPU) with the given rows and draws (gaussian noise, or the beta
+    prior's gamma pairs), the unfused Adam's rounding bits injected when
+    given; step 1's gradients (as the optimizer received them) and
+    weights, both steps' losses, on the CPU; on the CPU also the gamma
+    draws it made when ``draws`` is None."""
+    from scrubvae_torch import bench, factory
+    from scrubvae_torch.data.dataset import StreamDataset
+    from scrubvae_torch.data.pipeline import build_frame_store
+    from scrubvae_torch.data.skeleton import load_skeleton
+    from scrubvae_torch.data.synthetic import synthetic_pose_stream
+    from scrubvae_torch.models import residual
+    from scrubvae_torch.train.trainer import Trainer
+
+    skel = load_skeleton(ROOT / "configs" / "mouse_skeleton.yaml")
+    pose, ids = synthetic_pose_stream(skel, n_frames=4096, n_ids=4, seed=0)
+    ds = StreamDataset(
+        build_frame_store(pose, ids, skel, window=51, stride=2, device=device), skel, bench.KEYS, "midfwd",
+        arena_size=bench.ARENA, discrete_classes={"ids": np.unique(ids)}, device=device,
+    )
+    model, info = factory.build_model(
+        config["model"], config["disentangle"], 18, "midfwd", arena_size=bench.ARENA,
+        discrete_classes=ds.discrete_classes, loss_keys=config["loss"].keys(), device=device,
+    )
+    trainer = Trainer(config, {"train": ds}, model, info, device=device)
+    names = [n for n, _ in trainer.model.named_parameters()]
+
+    def cpu(t):
+        return t.detach().to("cpu", copy=True)
+
+    out = {"losses": [], "draws": [], "w0": {n: cpu(p) for n, p in trainer.model.named_parameters()}}
+    update = trainer.tx.update_and_apply
+
+    def recording(grads, state, params, step=[0]):
+        if step[0] == 0:
+            out["grads"] = {n: cpu(g) for n, g in zip(names, grads)}
+        kw = {} if bits is None else {"noise": [None if b is None else tuple(x.to(device) for x in b) for b in bits[step[0]]]}
+        step[0] += 1
+        return update(grads, state, params, **kw)
+
+    trainer.tx.update_and_apply = recording
+    gamma = residual.gamma_rsample
+    for s in range(2):
+        made = []
+
+        def capture(alpha, generator=None, draw=None):
+            z = gamma(alpha, generator, draw)
+            made.append(cpu(z))
+            return z
+
+        residual.gamma_rsample = capture
+        try:
+            eps = None if draws is None else draws[s]
+            if isinstance(eps, np.ndarray):
+                eps = torch.from_numpy(eps).to(device)
+            elif eps is not None:
+                eps = tuple(e.to(device) for e in eps)
+            trainer.state, metrics = trainer.train_step(
+                trainer.state, torch.as_tensor(rows[s] % len(ds), device=device), trainer.loss_scale_for_epoch(1), eps=eps,
+            )
+        finally:
+            residual.gamma_rsample = gamma
+        out["draws"].append(tuple(made))
+        out["losses"].append({k: float(v) for k, v in metrics.items()})
+        if s == 0:
+            out["w1"] = {n: cpu(p) for n, p in trainer.model.named_parameters()}
+    return out
+
+
+SURFACE_PARITY = {
+    # label: (model overrides, train overrides, channels)
+    "low_rank": ({"sigma_head_rank": 8}, {}, None),
+    "beta_prior": ({"prior": "beta"}, {}, None),
+    "sgd": ({}, {"optimizer": "sgd"}, None),
+    # a last channel of 128: fc_sigma 512 x 136 keeps bf16 moments
+    "unfused_adam": ({}, {"fused_optimizer": False, "moment_dtype": "bf16"}, [8, 8, 16, 16, 128]),
+}
+
+
+def surface_parity(label: str) -> dict:
+    """Steps 1 and 2 on the card against the CPU at z 16, window 51, f32,
+    batch 16, without clip, the same rows and noise on both sides (the beta
+    prior's gamma draws made on the CPU and injected on the card; the
+    unfused Adam's rounding bits drawn on the host and injected on both):
+    losses 1e-4 at step 1 and 1e-2 at step 2, gradients as
+    ``parity.check_grads``, weights as ``parity.check_weights`` at four
+    ulps (the Adam steps), but for the unfused Adam's bf16-moment leaf
+    within 2^-6 lr outside the gradient's noise band (its moments round the
+    same bits from inputs 1e-3 apart); for sgd each side's step 1 is
+    w0 - lr (g + 0.2 g) of its own gradient to an ulp."""
+    from scrubvae_torch import bench
+    from scrubvae_torch.train import parity
+
+    model, train, ch = SURFACE_PARITY[label]
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_surface_parity_"))
+    try:
+        config = _models_config(tmp, 16, 16, ch or bench.SMALL_CH, False, model=model, precision="fp32", **train)
+        rng = np.random.default_rng(11)
+        rows = rng.integers(0, 1 << 20, (2, 16))
+        draws = None if label == "beta_prior" else [rng.standard_normal((16, 16)).astype(np.float32) for _ in range(2)]
+        bits = None
+        if label == "unfused_adam":
+            from scrubvae_torch import factory
+            from scrubvae_torch.train import optim
+
+            m, _ = factory.build_model(config["model"], config["disentangle"], 18, "midfwd", arena_size=bench.ARENA,
+                                       loss_keys=config["loss"].keys(), device="cpu")
+            shapes = [tuple(p.shape) for p in m.parameters()]
+            bits = [[tuple(torch.from_numpy(rng.integers(0, 1 << 16, s)) for _ in range(2))
+                     if math.prod(s) >= optim.FusedAdamW.MIN_LOWP_ELEMS else None for s in shapes] for _ in range(2)]
+        cpu = _surface_parity_run("cpu", config, rows, draws, bits)
+        if draws is None:
+            draws = cpu["draws"]
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True)
+        try:
+            card = _surface_parity_run(DEVICE, config, rows, draws, bits)
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = False
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = {"run": label, "bf16_leaves": 0 if bits is None else sum(b is not None for b in bits[0])}
+    rec["max_loss_rel_step1"] = parity.check_losses(cpu["losses"][0], card["losses"][0], 1e-4)
+    rec.update(parity.check_grads(cpu["grads"], card["grads"]))
+    if label == "sgd":
+        # each side's step 1 is w0 - lr (g + 0.2 g) of its own gradient, to
+        # an ulp of the larger of w0 and the step; the gradients are held above
+        worst = 0.0
+        for side in (cpu, card):
+            for n, w in side["w1"].items():
+                g = side["grads"][n]
+                step = parity.LR * (g + 0.2 * g)
+                want = side["w0"][n] - step
+                d = (w - want).abs()
+                if bool((d > 2.0**-23 * (side["w0"][n].abs() + step.abs())).any()):
+                    raise AssertionError(f"sgd: step 1 of {n} is not w0 - 1.2 lr g, by up to {float(d.max()):.3e}")
+                worst = max(worst, float(d.max()))
+        rec["max_step_abs"] = worst
+    else:
+        # a bf16-moment leaf: the same bits round moments whose inputs
+        # differ at the gradients' 1e-3, so a moment may land one bf16 ulp
+        # (2^-8) apart and m / sqrt(n) two; the step 1 update is lr times
+        # that ratio, so 2^-6 lr, outside the noise band of the gradient
+        lowp = set() if bits is None else {n for n, b in zip(cpu["w1"], bits[0]) if b is not None}
+        keep = {n: w for n, w in cpu["w1"].items() if n not in lowp}
+        rec.update(parity.check_weights(keep, {n: card["w1"][n] for n in keep}, cpu["grads"], ulps=4,
+                                        got_grads=card["grads"]))
+        for n in lowp:
+            w, g = cpu["w1"][n], cpu["grads"][n]
+            d = (card["w1"][n] - w).abs()
+            band = g.abs() < 5e-2 * torch.sqrt(torch.mean(g * g))
+            out_ = (d > 2.0**-6 * parity.LR + 4 * 2.0**-23 * w.abs()) & ~band
+            rec[f"rounding_apart {n}"] = int((d > 4 * 2.0**-23 * (w.abs() + parity.LR)).sum())
+            rec[f"max_update_apart_over_lr {n}"] = float(d[~band].max()) / parity.LR
+            if bool(out_.any()):
+                raise AssertionError(
+                    f"unfused adam: {int(out_.sum())} of {w.numel()} weights of {n} differ after step 1 by more "
+                    f"than 2^-6 lr, up to {float(d[out_].max()):.3e}"
+                )
+    rec["max_loss_rel_step2"] = parity.check_losses(cpu["losses"][1], card["losses"][1], 1e-2)
+    log(f"surface {label} card against CPU, steps 1 and 2: " + json.dumps(rec))
+    return rec
+
+
+def surface_phase(card: str) -> dict:
+    """The rest of the training config surface (see the module docstring)."""
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_surface_"))
+    try:
+        t0 = time.perf_counter()
+        parity_recs = {label: surface_parity(label) for label in SURFACE_PARITY}
+        out = {"card_vs_cpu": parity_recs}
+        out["parkinsons"] = parkinsons_runs(card, tmp)
+        out["host_stream"] = host_stream_runs(card, tmp)
+        out["optimizers_prior"] = optimizer_prior_runs(card, tmp)
+        out["bench"] = surface_bench()
+        out["phase_s"] = time.perf_counter() - t0
+        log(f"surface phase: {out['phase_s']:.1f} s")
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
 
-def kernels_line(kernel: dict, path: dict, fit: dict, full: dict, bench: dict, x360: dict, models: dict) -> dict:
+def kernels_line(kernel: dict, path: dict, fit: dict, full: dict, bench: dict, x360: dict, models: dict,
+                 surface: dict = None) -> dict:
     """One record per kernel of the main path: its launches on the path run
     and, at the fc_sigma shape, its time beside the plain version's, the
     bound and the library call's, for the f32 variant (where
@@ -2103,13 +2734,28 @@ def kernels_line(kernel: dict, path: dict, fit: dict, full: dict, bench: dict, x
     and the full phase's launches, with the discriminator's inner pass (the
     f32 variant over its 22 leaves) beside its bound, the plain version's
     and ``torch._fused_adamw_``'s time; and the launches of the bench's run
-    and of each x360 and models training run with its leaf tables'
-    agreement with the plain version. ``max_abs_err`` is the largest of
-    every check's."""
+    and of each x360, models and surface training run with its leaf tables'
+    agreement with the plain version (the surface's sgd and unfused Adam
+    runs launch it 0 times). ``max_abs_err`` is the largest of every
+    check's."""
     errs = [kernel["max_abs_err"]]
     errs += [] if full is None else [full["inner_adamw"]["max_abs_err"]]
     errs += [] if x360 is None else [r["kernel_max_abs_err"] for r in x360["runs"].values()]
     errs += [] if models is None else [r["kernel_max_abs_err"] for r in models["runs"].values()]
+    surface_runs, surface_sets = {}, {}
+    if surface is not None:
+        surface_runs = {
+            "parkinsons": surface["parkinsons"]["per_key"], "parkinsons_raw_pose": surface["parkinsons"]["raw_pose"],
+            "host_stream": surface["host_stream"]["host_stream_run"],
+            "device_resident": surface["host_stream"]["device_run"], **surface["optimizers_prior"],
+            **{f"bench_{k}": v for k, v in surface["bench"].items()},
+        }
+        surface_sets = {
+            "parkinsons": surface["parkinsons"]["per_key"]["leaf_set"],
+            "low_rank": surface["bench"]["sigma_rank"]["leaf_set"],
+            "beta_prior": surface["optimizers_prior"]["beta_prior"]["leaf_set"],
+        }
+        errs += [c["max_abs_err"] for c in surface_sets.values()]
     f32 = kernel["timings"]["w f32, m f32"]
     bf16 = kernel["timings"]["w bf16, m bf16"]
     leaf_set = kernel["leaf_set"]
@@ -2154,6 +2800,10 @@ def kernels_line(kernel: dict, path: dict, fit: dict, full: dict, bench: dict, x
         "models_launches": None if models is None else {k: r["optimizer_launches"] for k, r in models["runs"].items()},
         "models_launches_per_step": None if models is None else {k: r["launches_per_step"] for k, r in models["runs"].items()},
         "models_max_abs_err": None if models is None else {k: r["kernel_max_abs_err"] for k, r in models["runs"].items()},
+        "surface_launches_per_step": {k: r["launches_per_step"] for k, r in surface_runs.items()} or None,
+        "surface_leaf_sets": {
+            k: {f: c[f] for f in LEAF_SET_KEYS + ("max_abs_err", "bytes")} for k, c in surface_sets.items()
+        } or None,
         "inner_pass": None if full is None else {
             k: full["inner_adamw"][k]
             for k in (
@@ -2220,8 +2870,10 @@ def main() -> int:
     x360 = x360_phase(smi[0] if smi else "nvidia-smi: no output") if "x360" in phases else None
     torch.cuda.empty_cache()
     models = models_phase(smi[0] if smi else "nvidia-smi: no output") if "models" in phases else None
+    torch.cuda.empty_cache()
+    surface = surface_phase(smi[0] if smi else "nvidia-smi: no output") if "surface" in phases else None
     if kernel is not None and path is not None:
-        log(json.dumps(kernels_line(kernel, path, fit, full, bench, x360, models)))
+        log(json.dumps(kernels_line(kernel, path, fit, full, bench, x360, models, surface)))
     log(smi[0] if smi else "nvidia-smi: no output")
     print(json.dumps({
         "ok": True,

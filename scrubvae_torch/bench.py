@@ -1,7 +1,9 @@
 """Training throughput of the port: the flagship train step on one GPU.
 
     python -m scrubvae_torch.bench [--batch 512] [--steps 100] [--warmup 5]
-                                   [--small] [--f32-params] [--device cuda]
+                                   [--small] [--f32-params] [--no-fused]
+                                   [--sigma-rank N] [--host-stream]
+                                   [--device cuda]
 
 The configuration is the flagship of the JAX package's bench: the rcnn
 ResVAE at window 51, channels 64-128-256-512-1024, kernel 5, z 128, packed
@@ -12,6 +14,14 @@ of at least 65536 elements, on a synthetic stream (max(16 batch, 4096)
 frames, 4 ids, seed 0) assembled into midfwd windows on the device.
 ``--small`` is the CPU smoke size: channels 8-8-16-16-32, z 16, batch 16,
 f32 storage and f32 compute. ``--f32-params`` keeps every leaf in f32.
+``--no-fused`` trains with the unfused Adam (``train.fused_optimizer:
+false``, plain torch ops) in place of the kernel; bf16 storage needs the
+kernel's stochastically rounded weight stores, so it needs
+``--f32-params`` (or ``--small``), as the JAX trainer refuses bf16 storage
+without the fused optimizer. ``--sigma-rank N`` factors ``fc_sigma`` at
+rank N (``model.sigma_head_rank``). ``--host-stream`` keeps the frame
+store in host memory and streams each step's slab to the device
+(``data.host_stream``).
 
 It times the real training path, ``Trainer.train_epoch`` over a (steps,
 batch) matrix of window indices, after one untimed epoch of ``warmup``
@@ -19,8 +29,9 @@ rows, between two synchronizes, and prints one JSON line:
 
 - ``metric`` (train_samples_per_sec_per_chip), ``value`` (samples/s),
   ``unit``, ``step_ms``, ``device_kind`` (the card's name, or "cpu"),
-  ``param_dtype`` and ``sigma_head_rank`` (null: the port has no low-rank
-  head);
+  ``param_dtype``, ``sigma_head_rank`` (null without ``--sigma-rank``),
+  ``fused_optimizer`` and, with ``--host-stream``, ``host_stream: true``;
+  the model's ``leaves`` and ``parameters``;
 - ``gflops_per_step`` and ``tflops_per_s``: the FLOPs of one more, untimed,
   step counted by ``torch.utils.flop_counter.FlopCounterMode``, 2*M*N*K for
   every matrix product (mm, addmm, bmm, baddbmm) and every convolution,
@@ -72,7 +83,10 @@ def peak_specs(name: str):
     return None, None
 
 
-def bench_config(batch: int, window: int, z_dim: int, ch, bf16_params: bool, precision: str = "bf16") -> dict:
+def bench_config(
+    batch: int, window: int, z_dim: int, ch, bf16_params: bool, precision: str = "bf16",
+    fused: bool = True, sigma_rank: int = 0,
+) -> dict:
     """The flagship's config sections, with ``train.minimal_test`` set."""
     return {
         "data": {
@@ -92,12 +106,12 @@ def bench_config(batch: int, window: int, z_dim: int, ch, bf16_params: bool, pre
         "model": {
             "type": "rcnn", "z_dim": z_dim, "window": window, "diag": False, "channel": list(ch),
             "kernel": 5, "start_epoch": 0, "load_model": None, "prior": "gaussian",
-            "activation": "prelu", "init_dilation": None, "sigma_head_rank": None,
+            "activation": "prelu", "init_dilation": None, "sigma_head_rank": sigma_rank or None,
             "precision": precision,
         },
         "train": {
             "lr": 1e-4, "optimizer": "adamw", "lr_schedule": "cawr", "num_epochs": 1, "seed": 0,
-            "mesh": None, "clip_norm": 0, "fused_optimizer": True,
+            "mesh": None, "clip_norm": 0, "fused_optimizer": fused,
             "param_dtype": "bf16" if bf16_params else "f32", "minimal_test": True,
         },
         "loss": {
@@ -108,12 +122,14 @@ def bench_config(batch: int, window: int, z_dim: int, ch, bf16_params: bool, pre
 
 
 def build(batch: int, window: int, z_dim: int, ch, device, *, precision: str = "bf16",
-          bf16_params: bool = True):
+          bf16_params: bool = True, fused: bool = True, sigma_rank: int = 0, host_stream: bool = False):
     """The synthetic stream, the on-device frame store and midfwd window
-    dataset, the model and the trainer on ``device``, computing in
-    ``precision`` ("bf16" or "fp32"). Returns (trainer, dataset)."""
+    dataset (its store in host memory with ``host_stream``), the model and
+    the trainer on ``device``, computing in ``precision`` ("bf16" or
+    "fp32"). Returns (trainer, dataset)."""
     from scrubvae_torch import factory
     from scrubvae_torch.data.dataset import StreamDataset
+    from scrubvae_torch.data.hoststream import HostStreamDataset
     from scrubvae_torch.data.pipeline import build_frame_store
     from scrubvae_torch.data.skeleton import load_skeleton
     from scrubvae_torch.data.synthetic import synthetic_pose_stream
@@ -126,7 +142,9 @@ def build(batch: int, window: int, z_dim: int, ch, device, *, precision: str = "
         store, skel, KEYS, "midfwd", arena_size=ARENA,
         discrete_classes={"ids": np.unique(ids)}, device=device,
     )
-    cfg = bench_config(batch, window, z_dim, ch, bf16_params, precision)
+    if host_stream:
+        ds = HostStreamDataset.from_stream(ds)
+    cfg = bench_config(batch, window, z_dim, ch, bf16_params, precision, fused, sigma_rank)
     model, info = factory.build_model(
         cfg["model"], cfg["disentangle"], n_keypts=skel.n_keypts, direction_process="midfwd",
         arena_size=ARENA, discrete_classes=ds.discrete_classes, loss_keys=cfg["loss"].keys(),
@@ -144,8 +162,13 @@ def parse_args(argv=None):
     ap.add_argument("--warmup", type=int, default=5)
     ap.add_argument("--small", action="store_true", help="tiny model (CPU smoke)")
     ap.add_argument("--f32-params", action="store_true", help="f32 storage of every leaf")
+    ap.add_argument("--no-fused", action="store_true", help="the unfused Adam in place of the kernel")
+    ap.add_argument("--sigma-rank", type=int, default=0, help="low-rank fc_sigma (0: the dense head)")
+    ap.add_argument("--host-stream", action="store_true", help="frame store in host memory, slabs streamed")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    if args.no_fused and not (args.f32_params or args.small):
+        ap.error("bf16 parameter storage needs the fused optimizer: add --f32-params to --no-fused")
     if args.small:
         if args.batch is not None or args.z_dim is not None:
             ap.error("--small fixes batch 16 and z 16: drop --batch/--z_dim")
@@ -175,6 +198,7 @@ def run(args) -> dict:
     trainer, ds = build(
         batch, args.window, args.z_dim, ch, device,
         precision="fp32" if args.small else "bf16", bf16_params=bf16_params,
+        fused=not args.no_fused, sigma_rank=args.sigma_rank, host_stream=args.host_stream,
     )
     rng = np.random.default_rng(0)
 
@@ -206,13 +230,18 @@ def run(args) -> dict:
         "step_ms": step_s * 1e3,
         "device_kind": kind,
         "param_dtype": "bf16" if bf16_params else "f32",
-        "sigma_head_rank": None,
+        "sigma_head_rank": args.sigma_rank or None,
+        "fused_optimizer": not args.no_fused,
+        "leaves": len(list(trainer.model.parameters())),
+        "parameters": sum(p.numel() for p in trainer.model.parameters()),
         "batch": batch,
         "steps": args.steps,
         "total": total,
         "gflops_per_step": flops / 1e9,
         "tflops_per_s": flops / step_s / 1e12,
     }
+    if args.host_stream:
+        out["host_stream"] = True
     peak_tflops, peak_gbps = peak_specs(kind) if device.type == "cuda" else (None, None)
     if peak_tflops:
         out["mfu"] = out["tflops_per_s"] / peak_tflops

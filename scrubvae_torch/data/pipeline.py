@@ -1,15 +1,15 @@
 """Device-resident preprocessing pipeline (counterpart of
 ``scrubvae_tpu/data/pipeline.py``: ``build_frame_store``,
-``assemble_windows`` for the midfwd and x360 processes, and
-``materialize``).
+``assemble_windows`` and ``materialize``).
 
 * Per-frame stage, once, on the device: IK to local quaternions, per-frame
   segment-length offsets and yaw, plus the cont6d representation and the
   zero-root forward kinematics of every frame.
 * Per-window stage, inside each train step: gather the batch's (B, W)
-  frames, centre on the mid frame, rotate into its heading (midfwd) or
-  not (x360), and compute the windowed speed features and, when asked
-  for, the heading-free encoder view.
+  frames, centre on the mid frame and rotate into its heading (midfwd),
+  centre only (x360) or neither (any other direction process), and
+  compute the windowed speed features and, when asked for, the
+  heading-free encoder view.
 """
 
 from __future__ import annotations
@@ -127,7 +127,6 @@ SUPPORTED_KEYS = (
     "x6d", "root", "offsets", "target_pose", "avg_speed_3d", "heading", "ids",
     "raw_pose", "x6d_enc", "root_enc",
 )
-DIRECTION_PROCESSES = ("midfwd", "x360")
 
 
 @torch.no_grad()
@@ -139,9 +138,11 @@ def assemble_windows(
     direction_process: str = "midfwd",
 ) -> Dict[str, torch.Tensor]:
     """Per-window stage for the windows starting at ``start_idx`` (B,):
-    mid-frame xy centering; with midfwd, the half-yaw rotation of the root
-    quaternion, the root trajectory and the target pose into the mid-frame
-    heading; with x360, none (the absolute representation). Then the
+    with midfwd and x360, mid-frame xy centering of the root; with midfwd,
+    also the half-yaw rotation of the root quaternion, the root trajectory
+    and the target pose into the mid-frame heading; with x360, none (the
+    absolute representation); with any other process, neither (the root as
+    recorded). Then the
     precomputed cont6d and target pose, the windowed speed features, the
     mid-frame heading and the raw pose window.
 
@@ -152,14 +153,9 @@ def assemble_windows(
     same way. The IK is run again per window because its child-joint
     rotations are not yaw-equivariant, so rotating the per-frame cont6d
     would leave the heading in every limb row."""
-    if direction_process not in DIRECTION_PROCESSES:
-        raise NotImplementedError(
-            f"scrubvae_torch assembles {' and '.join(DIRECTION_PROCESSES)} windows only "
-            f"(got direction_process={direction_process!r})"
-        )
     unknown = set(data_keys) - set(SUPPORTED_KEYS)
     if unknown:
-        raise NotImplementedError(f"scrubvae_torch cannot assemble {sorted(unknown)}")
+        raise KeyError(f"no per-window key {sorted(unknown)} in a frame store; known: {SUPPORTED_KEYS}")
     W = store.window
     fidx = start_idx[:, None] + torch.arange(W, device=start_idx.device)[None, :]
     mid = start_idx + W // 2
@@ -183,9 +179,11 @@ def assemble_windows(
     if want_enc or any(k in data_keys for k in ("root", "x6d", "target_pose")):
         midfwd = direction_process == "midfwd"
         root0 = store.pose[:, 0, :]
-        center = root0[mid].clone()
-        center[:, 2] = 0.0  # xy centering only
-        root = root0[fidx] - center[:, None, :]
+        root = root0[fidx]
+        if direction_process in ("midfwd", "x360"):
+            center = root0[mid].clone()
+            center[:, 2] = 0.0  # xy centering only
+            root = root - center[:, None, :]
         fwd_q = qtn.yaw_quat(yaw_mid)[:, None, :] if midfwd or want_enc else None  # (B, 1, 4)
         if "root_enc" in data_keys:
             out["root_enc"] = qtn.qrot(fwd_q, root)

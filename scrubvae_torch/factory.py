@@ -2,12 +2,14 @@
 ``in_channels_for``, ``build_model``, ``init_scrub_state``,
 ``_discrete_classes_for``, ``mouse_data``, ``data_and_model`` and
 ``all_saved_epochs`` in ``scrubvae_tpu/factory.py``, and the adversarial
-bundle of its ``init_scrub_state``; the ``rcnn``, ``transformer`` and
-``mlp`` models, and raw pose files only: the preprocessed per-key layout,
-host streaming and the parkinsons recoding raise ``NotImplementedError``)."""
+bundle of its ``init_scrub_state``): the ``rcnn``, ``transformer`` and
+``mlp`` models; raw pose files (a frame store, optionally streamed from
+host memory) and the preprocessed per-key layout; the parkinsons recoding
+of ids into ``ids``, ``pd_label`` and ``fluorescence``."""
 
 from __future__ import annotations
 
+import csv
 import re
 from pathlib import Path
 from typing import Dict, Optional, Sequence
@@ -16,9 +18,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from scrubvae_torch.data.dataset import StreamDataset
-from scrubvae_torch.data.pipeline import build_frame_store
-from scrubvae_torch.data.pose_io import read_pose_h5
+from scrubvae_torch.data.dataset import StreamDataset, WindowDataset
+from scrubvae_torch.data.hoststream import HostStreamDataset
+from scrubvae_torch.data.pipeline import AVG_SPEED_3D_MEAN, AVG_SPEED_3D_STD, build_frame_store
+from scrubvae_torch.data.pose_io import key_file, read_key_h5, read_pose_h5
 from scrubvae_torch.data.skeleton import load_skeleton
 from scrubvae_torch.device import resolve_device
 from scrubvae_torch.models import scrubbers as scr
@@ -275,13 +278,46 @@ def init_adv_bundle(disentangle_config: dict, z_dim: int, fdims: dict, seed: int
     return {"tx": tx, "states": states}
 
 
-def _discrete_classes_for(ids: np.ndarray, dataset_name: str) -> dict:
-    """Discrete-class maps (reference get/data.py:73-95): the ids seen."""
-    if dataset_name == "parkinsons":
-        raise NotImplementedError(
-            "scrubvae_torch has no parkinsons id/pd_label recoding yet (ROADMAP.md A.4)"
+PD_ID_OFFSET = 36  # parkinsons: raw ids >= 36 are the disease animals
+
+
+def _read_fluorescence(path) -> np.ndarray:
+    """The ``Fluorescence`` column of a ``metadata.csv``, row by row (the
+    row number is the raw animal id); empty cells are nan."""
+    with open(path, newline="") as f:
+        return np.asarray(
+            [float(r["Fluorescence"]) if r["Fluorescence"].strip() else np.nan for r in csv.DictReader(f)],
+            dtype=np.float64,
         )
-    return {"ids": np.unique(ids)}
+
+
+def _discrete_classes_for(data: dict, dataset_name: str, data_keys, data_path: Optional[Path] = None) -> dict:
+    """Discrete-class maps (reference get/data.py:73-95): the ids seen, or,
+    for the parkinsons data, the recoding. It writes into ``data``: from
+    the raw ids, ``pd_label`` = ids >= 36 (N, 1) and ``fluorescence`` =
+    ``metadata.csv``'s column at the raw id (N, 1) f32, each when among
+    ``data_keys``; then ``ids`` with 36 taken off the disease animals'.
+    The class map of ids is then ``arange`` of the count of distinct ids."""
+    discrete = {}
+    ids = np.asarray(data["ids"])
+    if dataset_name == "parkinsons":
+        if "pd_label" in data_keys:
+            data["pd_label"] = (ids >= PD_ID_OFFSET).astype(np.int64)[:, None]
+            discrete["pd_label"] = np.unique(data["pd_label"])
+        if "fluorescence" in data_keys and data_path is not None:
+            fluor = _read_fluorescence(Path(data_path) / dataset_name / "metadata.csv")[ids]
+            data["fluorescence"] = fluor.astype(np.float32)[:, None]
+        ids = np.where(ids >= PD_ID_OFFSET, ids - PD_ID_OFFSET, ids)
+        data["ids"] = ids
+        discrete["ids"] = np.arange(len(np.unique(ids)))
+    else:
+        discrete["ids"] = np.unique(ids)
+    return discrete
+
+
+def _arena(data_config: dict) -> Optional[np.ndarray]:
+    a = data_config.get("arena_size")
+    return None if a is None else np.asarray(a, dtype=np.float32)
 
 
 def mouse_data(
@@ -292,10 +328,16 @@ def mouse_data(
     stride: Optional[int] = None,
     window: Optional[int] = None,
     device="cuda",
-) -> StreamDataset:
-    """A ``StreamDataset`` on ``device`` from the raw pose file
+):
+    """The split's dataset on ``device``. From the raw pose file
     ``{data_path}/{dataset}/{split}/pose.h5`` (or ``{dataset}/pose.h5`` for
-    ``full``): frame store built once, windows assembled per batch."""
+    ``full``): a ``StreamDataset`` (frame store built once, windows
+    assembled per batch; the recoded ids and the metadata columns as
+    per-window extras), or, with ``data.host_stream`` on the train split,
+    a ``HostStreamDataset`` with the store in host memory. Without one: a
+    ``WindowDataset`` of the preprocessed per-key files of the split
+    (``pose_io.save_split``'s layout), whose raw ``avg_speed_3d`` is
+    normalized here by the reference dataset's mean and std."""
     dev = resolve_device(device)
     data_path = Path(data_config["data_path"])
     skeleton = load_skeleton(skeleton_path or data_path / "mouse_skeleton.yaml")
@@ -305,38 +347,62 @@ def mouse_data(
     data_keys = list(data_keys)
     if "ids" not in data_keys:
         data_keys = data_keys + ["ids"]
-    if data_config.get("host_stream") and train_val_test == "train":
-        raise NotImplementedError("scrubvae_torch has no host streaming (data.host_stream) yet (ROADMAP.md A.4)")
 
-    split_pose_file = data_path / dataset_name / train_val_test / "pose.h5"
+    split_dir = data_path / dataset_name / train_val_test
+    split_pose_file = split_dir / "pose.h5"
     pose_file = data_path / dataset_name / "pose.h5"
-    if not (split_pose_file.exists() or (train_val_test == "full" and pose_file.exists())):
-        raise NotImplementedError(
-            f"no raw pose file {split_pose_file}; scrubvae_torch does not read the "
-            "preprocessed per-key h5 layout yet (ROADMAP.md A.4)"
+    if split_pose_file.exists() or (train_val_test == "full" and pose_file.exists()):
+        pose, ids = read_pose_h5(split_pose_file if split_pose_file.exists() else pose_file)
+        store = build_frame_store(
+            pose, ids, skeleton, window=window, stride=stride,
+            speed_threshold=2.25 if data_config.get("remove_speed_outliers") is not False else None,
+            exact_offsets=bool(data_config.get("exact_offsets")),
+            part_centered_speed=bool(data_config.get("part_centered_speed")),
+            device=dev,
         )
-    pose, ids = read_pose_h5(split_pose_file if split_pose_file.exists() else pose_file)
-    store = build_frame_store(
-        pose, ids, skeleton, window=window, stride=stride,
-        speed_threshold=2.25 if data_config.get("remove_speed_outliers") is not False else None,
-        exact_offsets=bool(data_config.get("exact_offsets")),
-        part_centered_speed=bool(data_config.get("part_centered_speed")),
-        device=dev,
-    )
-    mid_ids = store.ids[store.starts + window // 2].cpu().numpy()
-    return StreamDataset(
-        store=store,
+        per_window = {"ids": store.ids[store.starts + window // 2].cpu().numpy()}
+        discrete = _discrete_classes_for(per_window, dataset_name, data_keys, data_path=data_path)
+        ds = StreamDataset(
+            store=store,
+            skeleton=skeleton,
+            data_keys=tuple(data_keys),
+            direction_process=data_config.get("direction_process") or "midfwd",
+            arena_size=_arena(data_config),
+            discrete_classes=discrete,
+            device=dev,
+            label=train_val_test,
+            extras={k: v for k, v in per_window.items() if k == "ids" or k in data_keys},
+        )
+        # host streaming applies to the train split; the others stay on the
+        # device, where the validation epoch reads them again and again
+        if data_config.get("host_stream") and train_val_test == "train":
+            ds = HostStreamDataset.from_stream(ds)
+        return ds
+
+    dp = data_config.get("direction_process")
+    data = {
+        key: read_key_h5(split_dir / key_file(key, dp), key)
+        for key in data_keys
+        if key not in ("pd_label", "fluorescence")
+    }
+    norm_params = {
+        "avg_speed_3d": {
+            "mean": np.asarray(AVG_SPEED_3D_MEAN, dtype=np.float32),
+            "std": np.asarray(AVG_SPEED_3D_STD, dtype=np.float32),
+        }
+    }
+    if "avg_speed_3d" in data:
+        stats = norm_params["avg_speed_3d"]
+        data["avg_speed_3d"] = (data["avg_speed_3d"] - stats["mean"]) / stats["std"]
+    discrete = _discrete_classes_for(data, dataset_name, data_keys, data_path=data_path)
+    return WindowDataset(
+        data=data,
+        arena_size=_arena(data_config),
         skeleton=skeleton,
-        data_keys=tuple(data_keys),
-        direction_process=data_config.get("direction_process") or "midfwd",
-        arena_size=(
-            np.asarray(data_config["arena_size"], dtype=np.float32)
-            if data_config.get("arena_size") is not None
-            else None
-        ),
-        discrete_classes=_discrete_classes_for(mid_ids, dataset_name),
-        device=dev,
         label=train_val_test,
+        discrete_classes=discrete,
+        norm_params=norm_params,
+        device=dev,
     )
 
 

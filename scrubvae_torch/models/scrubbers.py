@@ -1,7 +1,8 @@
 """Scrubbers (counterpart of the gradient-reversal, MLP-ensemble,
 linear-projection, polynomial-expansion, moving-average-least-squares,
-moving-average class-mean, QDA, adversarial-net and MCMI parts of
-``scrubvae_tpu/models/scrubbers.py``).
+recursive-least-squares, moving-average class-mean, QDA, adversarial-net
+and MCMI parts of ``scrubvae_tpu/models/scrubbers.py``; no loss reads the
+recursive least squares, as in the JAX package).
 
 Trainable heads are ``nn.Module``s inside the model, so the one outer
 optimizer covers them. The streaming scrubbers keep explicit state:
@@ -43,6 +44,10 @@ __all__ = [
     "mals_forward",
     "mals_loss",
     "mals_update",
+    "RLSState",
+    "rls_init",
+    "rls_forward",
+    "rls_update",
     "MAFilterState",
     "ma_init",
     "ma_loss",
@@ -252,6 +257,63 @@ def mals_update(state: MALSState, x: torch.Tensor, y: torch.Tensor) -> MALSState
         Sxx1=state.lam1 * state.Sxx1 + xx,
         Sxy1=state.lam1 * state.Sxy1 + xy,
     )
+
+
+# ---------------------------------------------------------------------------
+# Recursive least squares
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class RLSState:
+    """The recursive least-squares decoder ``theta`` (n, ny), its inverse
+    correlation ``P`` (n, n), the forgetting factor and static settings."""
+
+    theta: torch.Tensor
+    P: torch.Tensor
+    lam: torch.Tensor
+    bias: bool = False
+    polynomial_order: int = 1
+
+    def replace(self, **kw) -> "RLSState":
+        return dataclasses.replace(self, **kw)
+
+
+def rls_init(nx: int, ny: int, bias: bool = False, polynomial_order: int = 1, device=None) -> RLSState:
+    n = poly_dim(nx, polynomial_order) + int(bias)
+    f32 = dict(dtype=torch.float32, device=device)
+    return RLSState(
+        theta=torch.zeros((n, ny), **f32),
+        P=torch.eye(n, **f32),
+        lam=torch.tensor(0.9, **f32),
+        bias=bias,
+        polynomial_order=polynomial_order,
+    )
+
+
+def _rls_features(state: RLSState, x: torch.Tensor) -> torch.Tensor:
+    x = polynomial_expand(x, state.polynomial_order)
+    if state.bias:
+        x = torch.cat([x, x.new_ones(x.shape[0], 1)], dim=-1)
+    return x
+
+
+def rls_forward(state: RLSState, x: torch.Tensor) -> torch.Tensor:
+    return _rls_features(state, x) @ state.theta
+
+
+@torch.no_grad()
+def rls_update(state: RLSState, x: torch.Tensor, y: torch.Tensor) -> RLSState:
+    """One batch of the forgetting RLS recursion: P <- (P - P x^T (x P
+    x^T + lam I)^-1 x P) / lam, theta <- theta + P x^T (y - x theta)."""
+    x = _rls_features(state, x.detach())
+    y = y.detach()
+    A = x @ state.P @ x.T
+    A = A + state.lam * torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
+    P = state.P - state.P @ x.T @ torch.linalg.solve(A, x @ state.P)
+    P = P / state.lam
+    theta = state.theta + P @ x.T @ (y - x @ state.theta)
+    return state.replace(P=P, theta=theta)
 
 
 # ---------------------------------------------------------------------------

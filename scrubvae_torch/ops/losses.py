@@ -1,6 +1,6 @@
 """Primitive losses of the train step (counterpart of the
 ``rotation_loss`` / ``stable_rotation_loss`` / ``prior_loss`` /
-``prior_loss_packed`` / ``mpjpe_loss`` / ``direct_lsq_loss`` / ``mse_sum`` /
+``prior_loss_packed`` / ``beta_prior_loss`` / ``mpjpe_loss`` / ``direct_lsq_loss`` / ``mse_sum`` /
 ``total_correlation`` part of ``scrubvae_tpu/ops/losses.py``)."""
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ __all__ = [
     "stable_rotation_loss",
     "prior_loss",
     "prior_loss_packed",
+    "beta_prior_loss",
     "mpjpe_loss",
     "direct_lsq_loss",
     "total_correlation",
@@ -76,6 +77,15 @@ def prior_loss_packed(mu: torch.Tensor, Lp: torch.Tensor, diag_only: bool = Fals
         mu.shape[0] * D + 2.0 * torch.sum(log_diag) - torch.sum(mu**2) - packed_sumsq(Lp)
     )
     return kl / mu.shape[0]
+
+
+def beta_prior_loss(alpha: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """KL(Beta(alpha, beta) || Beta(1, 1)) summed over dims, averaged over
+    the batch; the closed form with digammas."""
+    dg = torch.special.digamma
+    betaln = torch.lgamma(alpha) + torch.lgamma(beta) - torch.lgamma(alpha + beta)
+    kl = -betaln + (alpha - 1.0) * dg(alpha) + (beta - 1.0) * dg(beta) - (alpha + beta - 2.0) * dg(alpha + beta)
+    return torch.sum(kl) / alpha.shape[0]
 
 
 def mpjpe_loss(

@@ -1,5 +1,6 @@
 """Batch-loss assembly (counterpart of ``compute_batch_loss`` in
-``scrubvae_tpu/train/losses.py``): rotation, prior (packed or dense head),
+``scrubvae_tpu/train/losses.py``): rotation, prior (packed or dense head,
+or the beta prior),
 jpe, root, mcmi, the per-feature scrubber losses ``{feat}_mals``,
 ``{feat}_qda``, ``{feat}_lsq``, ``{feat}_lin``, ``{feat}_gr``, ``{feat}_ma``
 and ``{feat}_an``, and total_correlation. ``total`` is the loss-scale
@@ -48,6 +49,8 @@ def compute_batch_loss(
     if "prior" in loss_scale:
         if "Lp" in data_o:
             bl["prior"] = L.prior_loss_packed(data_o["mu"], data_o["Lp"])
+        elif "alpha" in data_o:
+            bl["prior"] = L.beta_prior_loss(data_o["alpha"], data_o["beta"])
         else:
             bl["prior"] = L.prior_loss(data_o["mu"], data_o["L"])
     if "jpe" in loss_scale:

@@ -90,7 +90,9 @@ def make_train_step(
     """Build ``step(state, idx, loss_scale, eps=None, perms=None) -> (state,
     metrics)``.
 
-    ``idx`` are window indices; ``eps`` (B, z) overrides the sample noise and
+    ``idx`` are window indices (or what ``batch_fn`` takes: a host-streamed
+    slab); ``eps`` (B, z) overrides the sample noise (under the beta prior,
+    the pair of gamma draws, see ``ResVAE.forward``) and
     ``perms`` (``draw_adv_perms``' layout) the adversarial shuffles, both
     drawn from ``state.generator`` otherwise. Parameters, moments, BatchNorm
     statistics and the discriminators update in place; metrics stay on the
@@ -104,7 +106,9 @@ def make_train_step(
     def step(state: TrainState, idx, loss_scale: Dict[str, float], eps: Optional[torch.Tensor] = None, perms=None):
         data = batch_fn(idx)
         B = data["x6d"].shape[0]
-        if eps is None:
+        # the beta prior draws its gamma variates in the forward, from the
+        # same generator
+        if eps is None and getattr(model.vae, "prior", "gaussian") == "gaussian":
             eps = torch.randn((B, model.vae.z_dim), generator=state.generator, device=data["x6d"].device)
         if state.adv_states and perms is None:
             perms = draw_adv_perms(state.generator, B, list(state.adv_states), adv_n_iter)

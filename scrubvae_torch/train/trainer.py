@@ -9,12 +9,19 @@ generative restrictiveness and the cross-validated decodability of the
 validation mu every 5 epochs from ``train.eval_start_epoch``, resume from
 ``model.load_model`` + ``model.start_epoch``, and ``metrics.csv``.
 
+A train split in host memory (``HostStreamDataset``, ``data.host_stream``)
+feeds each step a slab copied to the device ahead of it
+(``prefetch_to_device``, two deep), which the step assembles; the epoch's
+batch order is the device-resident one, from the same numpy generator.
+
 The JAX scanned epoch becomes a Python loop of steps over an index matrix.
 Two of the JAX package's accelerator options are accepted and have no
 effect: ``train.scan_epoch`` (the port always steps from the host: an
 eager step has no program to scan) and ``train.donate`` (steps update
 parameters, moments and statistics in place, so nothing is left to
-donate). ``train.mesh`` must be unset: the port trains on one device.
+donate). ``train.mesh`` is accepted where one device is visible, where
+the JAX package ignores it too; the port shards over no more than one
+(a mesh over several devices raises).
 
 Decodability (``decodability_metrics``) runs its estimators on the
 trainer's device and draws from no training stream (not the sample-noise
@@ -33,6 +40,7 @@ import torch
 
 from scrubvae_torch import factory
 from scrubvae_torch.data.dataset import epoch_batches, epoch_index_matrix
+from scrubvae_torch.data.hoststream import HostStreamDataset, prefetch_to_device
 from scrubvae_torch.device import resolve_device
 from scrubvae_torch.evals import metrics as em
 from scrubvae_torch.evals.restrictiveness import generative_restrictiveness_batch
@@ -59,9 +67,17 @@ class Trainer:
         for ds in (self.train_ds, self.val_ds):
             if ds is not None and ds.device != self.device:
                 raise ValueError(f"a dataset lives on {ds.device}, the trainer on {self.device}")
+        if isinstance(self.val_ds, HostStreamDataset):
+            raise ValueError(
+                "host-streaming val splits are unsupported: the validation epoch reads the "
+                "split again and again (data.host_stream applies to the train split only)"
+            )
+        self.host_stream = isinstance(self.train_ds, HostStreamDataset)
+        self.stream_stats: Dict[str, float] = {}  # the host stream's waits (prefetch_to_device)
         self.train_cfg = config["train"]
-        if self.train_cfg.get("mesh"):
-            raise NotImplementedError("scrubvae_torch trains on one device")
+        visible = torch.cuda.device_count() if self.device.type == "cuda" else 1
+        if self.train_cfg.get("mesh") and visible > 1:
+            raise NotImplementedError(f"scrubvae_torch trains on one device; train.mesh over {visible} is not ported")
         data_cfg = config["data"]
         self.batch_size = int(data_cfg.get("batch_size") or 256)
         # a batch above len(train) would give no batch an epoch
@@ -74,6 +90,11 @@ class Trainer:
         self.eval_start_epoch = 50 if ese is None else int(ese)
         self.steps_per_epoch = max(len(self.train_ds) // self.batch_size, 1)
         self.tx = optim.make_optimizer(self.train_cfg, self.steps_per_epoch)
+        if (self.train_cfg.get("param_dtype") or "f32") == "bf16" and not isinstance(self.tx, optim.FusedAdamW):
+            raise ValueError(
+                "train.param_dtype: bf16 requires the fused optimizer (stochastically rounded "
+                "weight stores); remove fused_optimizer: false, optimizer: sgd or param_dtype"
+            )
 
         factory.init_weights(self.model, self.seed)
         self._maybe_lowp_params()
@@ -118,7 +139,8 @@ class Trainer:
         self.feat_slices = feature_slices(info["conditional_keys"], info["feat_dims"])
         adv_fit = self.dis_cfg.get("adv_fit")
         self.train_step = make_train_step(
-            self.model, self.tx, tree, disentangle_config=self.dis_cfg, batch_fn=self.train_ds.batch,
+            self.model, self.tx, tree, disentangle_config=self.dis_cfg,
+            batch_fn=self.train_ds.make_batch_fn() if self.host_stream else self.train_ds.batch,
             loss_keys=tuple(self.loss_cfg), feat_slices=self.feat_slices,
             adv_tx=self.adv_bundle["tx"] if self.adv_bundle else None,
             adv_fit=adv_fit is None or bool(adv_fit), adv_n_iter=int(self.dis_cfg.get("n_iter") or 5),
@@ -162,17 +184,24 @@ class Trainer:
 
     def train_epoch(self, epoch: int, idx_matrix: Optional[np.ndarray] = None) -> Dict[str, float]:
         """One pass over ``idx_matrix`` (steps, batch) of window indices, a
-        shuffled epoch by default; returns the mean of each loss term."""
+        shuffled epoch by default (for a host-streamed split, the slabs of
+        those rows); returns the mean of each loss term."""
         loss_scale = self.loss_scale_for_epoch(epoch)
         if idx_matrix is None:
             idx_matrix = epoch_index_matrix(len(self.train_ds), self.batch_size, self.np_rng)
-        idx_dev = torch.as_tensor(idx_matrix, device=self.device)
+        if self.host_stream:
+            feed = prefetch_to_device(
+                self.train_ds.epoch_slabs(np.asarray(idx_matrix)), size=2, device=self.device,
+                stats=self.stream_stats,
+            )
+        else:
+            feed = torch.as_tensor(idx_matrix, device=self.device)
         sums: Dict[str, torch.Tensor] = {}
-        for idx in idx_dev:
-            self.state, metrics = self.train_step(self.state, idx, loss_scale)
+        for batch in feed:
+            self.state, metrics = self.train_step(self.state, batch, loss_scale)
             for k, v in metrics.items():
                 sums[k] = sums[k] + v if k in sums else v
-        n = max(len(idx_dev), 1)
+        n = max(len(idx_matrix), 1)
         # sorted, as the JAX package's jitted steps return their dicts
         return {k: float(sums[k]) / n for k in sorted(sums)}
 

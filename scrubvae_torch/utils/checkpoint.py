@@ -8,8 +8,10 @@ are not read.
 
 - Weights: the model's ``state_dict`` (parameters and BatchNorm buffers) in
   their storage dtype, so bf16 leaves stay bf16.
-- Full state: the weights plus the optimizer's moments, its device step
-  count and host step (the Philox counter of the rounding bits), the
+- Full state: the weights plus the optimizer's state (the fused AdamW's
+  moments, device step count and host step, the Philox counter of its
+  rounding bits; the unfused Adam's moments, count and the generator of
+  its rounding bits; sgd's momentum trace and count), the
   streaming scrubber states (MALS, moving-average class means, QDA), each adversarial discriminator's
   parameters with its own optimizer's moments and counts, the MCMI
   estimator, the state of the generator of the sample noise, the
@@ -146,25 +148,45 @@ def _with_tensors(st, saved: dict):
 
 
 def _opt_tensors(opt) -> dict:
-    return {
-        "count": opt.count.detach().cpu(),
-        "step": opt.step,
-        "mu": [m.detach().cpu() for m in opt.mu],
-        "nu": [n.detach().cpu() for n in opt.nu],
-    }
+    """An optimizer state's fields as CPU copies: its counts, its per-leaf
+    tensors (moments, momentum trace) and its generator's state; the
+    fused optimizer's leaf table is rebuilt, not saved."""
+    out = {}
+    for f in dataclasses.fields(opt):
+        v = getattr(opt, f.name)
+        if isinstance(v, torch.Tensor):
+            out[f.name] = v.detach().cpu()
+        elif isinstance(v, list):
+            out[f.name] = [t.detach().cpu() for t in v]
+        elif isinstance(v, torch.Generator):
+            out[f.name] = v.get_state()
+        elif isinstance(v, int):
+            out[f.name] = v
+    return out
 
 
 def _restore_opt(opt, saved: dict):
-    """Copy saved moments into ``opt``'s in place (its leaf table holds
-    them); returns ``opt`` with the saved counts."""
-    for dst, src in zip(opt.mu + opt.nu, saved["mu"] + saved["nu"]):
-        if dst.shape != src.shape or dst.dtype != src.dtype:
-            raise ValueError(
-                f"moment {tuple(src.shape)} {src.dtype} in the checkpoint, "
-                f"{tuple(dst.shape)} {dst.dtype} in the optimizer"
-            )
-        dst.copy_(src)
-    return dataclasses.replace(opt, count=saved["count"].to(opt.count.device), step=int(saved["step"]))
+    """Copy the saved per-leaf tensors into ``opt``'s in place (the fused
+    optimizer's leaf table holds them) and set its generator's state;
+    returns ``opt`` with the saved counts."""
+    counts = {}
+    for f in dataclasses.fields(opt):
+        v, src = getattr(opt, f.name), saved.get(f.name)
+        if isinstance(v, list):
+            for dst, t in zip(v, src):
+                if dst.shape != t.shape or dst.dtype != t.dtype:
+                    raise ValueError(
+                        f"{f.name} {tuple(t.shape)} {t.dtype} in the checkpoint, "
+                        f"{tuple(dst.shape)} {dst.dtype} in the optimizer"
+                    )
+                dst.copy_(t)
+        elif isinstance(v, torch.Generator):
+            v.set_state(src)
+        elif isinstance(v, torch.Tensor):
+            counts[f.name] = src.to(v.device)
+        elif isinstance(v, int):
+            counts[f.name] = int(src)
+    return dataclasses.replace(opt, **counts)
 
 
 def save_train_state(

@@ -12,8 +12,10 @@ for the rcnn and the transformer):
   (k, in, out)                                 (in, out, k), flipped along k
 - dense kernel (in, out)                    -> Linear weight (out, in)
 - flax flattens the encoder output length-major (L, C); the port's NCW
-  flatten is channel-major (C, L): fc_mu / fc_sigma inputs and fc_in
-  outputs take the permutation
+  flatten is channel-major (C, L): the inputs of the heads that read it
+  (fc_mu, fc_sigma, the low-rank head's fc_sigma_u, the beta prior's
+  fc_alpha and fc_beta) and fc_in's outputs take the permutation;
+  fc_sigma_v reads the rank and is a plain dense kernel
 - BatchNorm scale/bias + batch_stats mean/var -> weight/bias/running_*
 - scalar PReLU alpha                        -> weight of shape (1,)
 - attention ``query``/``key``/``value``       -> ``in_proj_weight`` (3d, d),
@@ -136,7 +138,11 @@ def _rcnn(take, sd: dict, flat: dict) -> None:
     def perm(n):
         return _lc_to_cl(C, n // C) if C and n % C == 0 else np.arange(n)
 
-    for src, dst in (("encoder/fc_mu", "encoder.fc_mu"), ("encoder/fc_sigma", "encoder.fc_sigma.0")):
+    for src, dst in (
+        ("encoder/fc_mu", "encoder.fc_mu"), ("encoder/fc_sigma", "encoder.fc_sigma.0"),
+        ("encoder/fc_sigma_u", "encoder.fc_sigma_u"), ("encoder/fc_alpha", "encoder.fc_alpha"),
+        ("encoder/fc_beta", "encoder.fc_beta"),
+    ):
         k, b = take(f"params/{src}/kernel"), take(f"params/{src}/bias")
         if k is not None:
             w = np.empty((k.shape[1], k.shape[0]), np.float32)
@@ -144,6 +150,12 @@ def _rcnn(take, sd: dict, flat: dict) -> None:
             sd[f"vae.{dst}.weight"] = w
         if b is not None:
             sd[f"vae.{dst}.bias"] = b
+    # the low-rank head's second factor reads the rank, not the flatten
+    k, b = take("params/encoder/fc_sigma_v/kernel"), take("params/encoder/fc_sigma_v/bias")
+    if k is not None:
+        sd["vae.encoder.fc_sigma_v.weight"] = k.T
+    if b is not None:
+        sd["vae.encoder.fc_sigma_v.bias"] = b
     k, b = take("params/decoder/fc_in/kernel"), take("params/decoder/fc_in/bias")
     if k is not None:
         w = np.empty((k.shape[1], k.shape[0]), np.float32)

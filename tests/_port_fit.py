@@ -199,21 +199,27 @@ def _states(scrub_state, to_tensor) -> dict:
     }
 
 
-def run_steps(jt, trainer, rows: np.ndarray) -> tuple:
+def gaussian_noise(jt, row) -> torch.Tensor:
+    """JAX's sample noise of its next step, ``jax.random.normal(split(
+    state.rng, 5)[1], mu.shape)``."""
+    Z = int(jt.info["z_dim"])
+    return torch.from_numpy(np.array(jax.random.normal(jax.random.split(jt.state.rng, 5)[1], (len(row), Z))))
+
+
+def run_steps(jt, trainer, rows: np.ndarray, noise=gaussian_noise) -> tuple:
     """``len(rows)`` steps of each side on the window rows ``rows[s]``, the
-    port with JAX's sample noise. Returns (JAX run, port run): each step's
+    port with JAX's sample noise, ``noise(jt, row)`` taken before JAX's
+    step (the beta prior's gamma draws, say). Returns (JAX run, port run): each step's
     losses, the step-1 gradients (from the first moment, m = (1 - b1) g) and
     weights, the streaming states after step 1 and after the last, and the
     update of every leaf over all the steps, and the port's initial weights
     (``port["w0"]``)."""
-    B = rows.shape[1]
     ref, port = {"losses": []}, {"losses": []}
     p0 = flat({"params": jt.state.params})
     loss_scale = jt.loss_scale_for_epoch(1)
     noises = []
-    Z = trainer.info["z_dim"]
     for s, row in enumerate(rows):
-        noises.append(np.array(jax.random.normal(jax.random.split(jt.state.rng, 5)[1], (B, Z))))
+        noises.append(noise(jt, row))
         jt.state, metrics = jt.train_step(jt.state, jnp.asarray(row, jnp.int32), loss_scale)
         ref["losses"].append({k: float(v) for k, v in metrics.items()})
         if s == 0:
@@ -231,7 +237,7 @@ def run_steps(jt, trainer, rows: np.ndarray) -> tuple:
     port_scale = trainer.loss_scale_for_epoch(1)
     for s, row in enumerate(rows):
         trainer.state, metrics = trainer.train_step(
-            trainer.state, torch.as_tensor(row), port_scale, eps=torch.from_numpy(noises[s])
+            trainer.state, torch.as_tensor(row), port_scale, eps=noises[s]
         )
         port["losses"].append({k: float(v) for k, v in metrics.items()})
         if s == 0:

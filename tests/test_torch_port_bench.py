@@ -1,6 +1,6 @@
 """The port's bench entry, ``python -m scrubvae_torch.bench``, on the CPU at
 ``--small`` size: its one JSON line, that it leaves the JAX bench's
-``BENCH_BASELINE.json`` as it was, the flags it refuses, the card table,
+``BENCH_BASELINE.json`` as it was, its flags, the card table,
 and its FLOP count against a hand count from the layer shapes.
 
 The hand count follows the bench's convention (2*M*N*K per product, as
@@ -70,9 +70,31 @@ def test_leaves_the_jax_baseline_alone(cli):
 
 
 @pytest.mark.parametrize("flag", [["--no-fused"], ["--sigma-rank", "4"], ["--host-stream"]])
-def test_unported_flags_are_refused(flag):
+def test_flags_run(flag):
+    """Each of the JAX bench's three flags runs the small bench and says so
+    in its record: the unfused Adam, the low-rank head (rank 4 below the
+    small model's 128 and 136), the host-streamed train split."""
+    from scrubvae_torch.data.hoststream import HostStreamDataset
+    from scrubvae_torch.train import optim
+
+    args = bench.parse_args(SMALL + flag)
+    out = bench.run(args)
+    assert np.isfinite(out["total"]) and out["step_ms"] > 0
+    assert out["fused_optimizer"] is (flag[0] != "--no-fused")
+    assert out["sigma_head_rank"] == (4 if flag[0] == "--sigma-rank" else None)
+    assert out.get("host_stream", False) is (flag[0] == "--host-stream")
+    trainer, ds = bench.build(16, 51, 16, bench.SMALL_CH, "cpu", precision="fp32", bf16_params=False,
+                              fused=not args.no_fused, sigma_rank=args.sigma_rank, host_stream=args.host_stream)
+    assert isinstance(trainer.tx, optim.AdamLowp if args.no_fused else optim.FusedAdamW)
+    assert isinstance(ds, HostStreamDataset) is args.host_stream
+    assert hasattr(trainer.model.vae.encoder, "fc_sigma_u") is bool(args.sigma_rank)
+
+
+def test_no_fused_needs_f32_params():
+    """bf16 storage needs the fused optimizer, as the JAX trainer says."""
     with pytest.raises(SystemExit):
-        bench.parse_args(SMALL + flag)
+        bench.parse_args(["--no-fused"])
+    assert bench.parse_args(["--no-fused", "--f32-params"]).no_fused
 
 
 @pytest.mark.parametrize("flag", [["--batch", "64"], ["--z_dim", "32"]])

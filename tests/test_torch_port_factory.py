@@ -1,7 +1,8 @@
 """``factory.data_and_model`` from raw pose files on disk, the port against
 the JAX package: the same splits (length, discrete classes, batches key by
 key for the train keys and the val keys), the same model description; and
-the data paths that are not ported yet raise ``NotImplementedError``.
+the host-streamed, preprocessed per-key and parkinsons data paths build
+and train.
 
 Batches are held to the tolerances of ``tests/test_torch_port_data.py``:
 atol 1e-5, plus twice the JAX pipeline's own distance from float64 for the
@@ -18,6 +19,7 @@ import torch
 
 from scrubvae_tpu import factory as jfactory
 from scrubvae_torch import factory
+from scrubvae_torch.data.dataset import StreamDataset
 from scrubvae_torch.data.pose_io import write_pose_h5
 from scrubvae_torch.data.skeleton import load_skeleton
 from scrubvae_torch.data.synthetic import synthetic_pose_stream
@@ -119,23 +121,65 @@ def test_all_saved_epochs(tmp_path):
 
 
 @pytest.mark.parametrize("what", ["host_stream", "preprocessed_layout", "parkinsons"])
-def test_unported_paths_raise(pair, tmp_path, what):
+def test_data_paths_build_and_train(pair, tmp_path, what):
+    """The host-streamed train split, the preprocessed per-key layout
+    (written by the port's ``preprocess_data`` from the raw files) and the
+    parkinsons recoding (a ``metadata.csv`` beside the raw files) through
+    ``data_and_model``: each split's kind and length, its discrete classes
+    and the model description as JAX's; then one epoch of ``train`` with
+    finite losses."""
+    import csv
+
+    from scrubvae_tpu.data.hoststream import HostStreamDataset as JaxHostStreamDataset
+    from scrubvae_torch import preprocess_data
+    from scrubvae_torch.data.dataset import WindowDataset
+    from scrubvae_torch.data.hoststream import HostStreamDataset
+    from scrubvae_torch.train.trainer import train
+
     cfg = config(Path(pair[0]["data"]["data_path"]))
+    data = Path(cfg["data"]["data_path"])
+    kind = StreamDataset
     if what == "host_stream":
         cfg["data"]["host_stream"] = True
-        match = "host streaming"
+        kind = HostStreamDataset
     elif what == "preprocessed_layout":
-        (tmp_path / "synthetic" / "train").mkdir(parents=True)
         shutil.copy(ROOT / "configs" / "mouse_skeleton.yaml", tmp_path / "mouse_skeleton.yaml")
+        skel = load_skeleton(ROOT / "configs" / "mouse_skeleton.yaml")
+        for split in ("train", "val"):
+            from scrubvae_torch.data.pose_io import read_pose_h5, save_split
+
+            pose, ids = read_pose_h5(data / "synthetic" / split / "pose.h5")
+            windows = preprocess_data.preprocess_split(pose, ids, skel, device="cpu")
+            save_split(tmp_path / "synthetic" / split, windows, "midfwd")
         cfg["data"]["data_path"] = str(tmp_path) + "/"
-        match = "preprocessed per-key"
+        kind = WindowDataset
     else:
-        data = Path(cfg["data"]["data_path"])
-        shutil.copytree(data / "synthetic", data / "parkinsons", dirs_exist_ok=True)
-        cfg["data"]["dataset"] = "parkinsons"
-        match = "parkinsons"
-    with pytest.raises(NotImplementedError, match=match):
-        factory.data_and_model(cfg, data_keys=TRAIN_KEYS, device="cpu")
+        shutil.copytree(data / "synthetic", tmp_path / "parkinsons")
+        shutil.copy(ROOT / "configs" / "mouse_skeleton.yaml", tmp_path / "mouse_skeleton.yaml")
+        rows = ["Subject,Fluorescence"] + [f"{i},{1.5 + i}" for i in range(40)]
+        (tmp_path / "parkinsons" / "metadata.csv").write_text("\n".join(rows) + "\n")
+        cfg["data"].update(data_path=str(tmp_path) + "/", dataset="parkinsons")
+    jds, _, jinfo = jfactory.data_and_model(cfg, data_keys=TRAIN_KEYS)
+    tds, model, info = factory.data_and_model(cfg, data_keys=TRAIN_KEYS, device="cpu")
+    assert info == jinfo
+    for split in ("train", "val"):
+        want = kind if split == "train" or kind is WindowDataset else StreamDataset
+        assert type(tds[split]) is want, (split, type(tds[split]))
+        assert len(tds[split]) == len(jds[split])
+        assert tds[split].discrete_classes.keys() == jds[split].discrete_classes.keys()
+        for k, v in jds[split].discrete_classes.items():
+            np.testing.assert_array_equal(tds[split].discrete_classes[k], v, err_msg=k)
+    if what == "host_stream":
+        assert isinstance(jds["train"], JaxHostStreamDataset)
+    if what == "parkinsons":
+        assert {"pd_label", "fluorescence"} <= set(tds["val"].batch(torch.arange(4)))
+    cfg["train"].update(num_epochs=1, minimal_test=True, precision="fp32")
+    cfg["model"]["precision"] = "fp32"
+    cfg["out_path"] = str(tmp_path / "run")
+    train(cfg, tds, model, info, device="cpu")
+    with open(tmp_path / "run" / "metrics.csv", newline="") as f:
+        row = next(csv.DictReader(f))
+    assert all(np.isfinite(float(row[k])) for k in row if k.endswith("_train"))
 
 
 # ---------------------------------------------------------------------------

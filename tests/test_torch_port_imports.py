@@ -21,6 +21,7 @@ def test_importing_every_module_pulls_in_no_jax():
         "ops.fused_adamw", "train.trainer", "params.read", "params.param_keys", "evals.restrictiveness",
         "train_model", "utils.checkpoint", "utils.logging", "data.pose_io", "evals.metrics", "evals.probes",
         "evals.latents", "bench", "models.base", "models.mlp_vae", "models.transformer",
+        "data.hoststream", "preprocess_data",
     ):
         assert "scrubvae_torch." + m in mods, m
     code = (
@@ -69,11 +70,14 @@ def test_decodability_runs_without_sklearn_or_jax():
 
 
 def test_pose_io_imports_without_h5py():
-    """h5py is imported when a file is read or written, not before."""
+    """h5py is imported when a file is read or written, not before; pandas
+    never (the parkinsons metadata is read with csv)."""
     code = (
         "import sys\n"
         "sys.modules['h5py'] = None\n"
+        "sys.modules['pandas'] = None\n"
         "import scrubvae_torch.data.pose_io, scrubvae_torch.factory, scrubvae_torch.train_model\n"
+        "import scrubvae_torch.data.hoststream, scrubvae_torch.preprocess_data\n"
         "try:\n"
         "    scrubvae_torch.data.pose_io.read_pose_h5('missing.h5')\n"
         "except ImportError:\n"
