@@ -186,6 +186,39 @@ Phases (each one fails the run on error; nothing is caught and swallowed):
    and parkinsons tables each go through the kernel in one call, bitwise
    against the plain version.
 
+13. analysis: the offline analysis at full flagship width on the fit
+   phase's run folder (weights at epochs 15 and 20; run alone, ``--phases
+   analysis`` first trains the fit phase's config to epoch 20 without
+   decodability). The fit phase's val split tenfold (4 ids x 26,000 frames,
+   51,900 windows) is built by ``factory.mouse_data`` (the pose file a
+   placeholder served from memory). ``evals.latents.latents`` encodes it
+   under the weights of epochs 15 and 20 (the model built from the config,
+   the weights loaded); ``evals.cluster.gmm`` at its defaults (25 full
+   components, float32) clusters epoch 15 into the run's cache, every
+   weight above 0, held against a float64 E-step on the host with the
+   fitted parameters (labels, mean log-likelihood, EM's ascent);
+   ``evals.metrics.epoch_cluster_entropy`` scores epoch 20
+   against that clustering, finite and within [0, log2 25];
+   ``evals.cluster.dbscan`` (HDBSCAN) runs at min_samples 500 on every
+   latent of epoch 20. Card against CPU: the float64 GMM on 5,120 latents
+   (the same k-means++ centres, ``n_iter_`` and labels, the parameters
+   within ``GMM_CARD_CPU_RTOL``) and the float32 GMM on the same latents
+   (``GMM_F32_ITERS`` iterations: the same centres, labels but for
+   ``GMM_F32_LABELS``, weights, means and covariances within
+   ``GMM_F32_RTOL``, each device's precision factors within their
+   condition bound), HDBSCAN's labels on 5 planted 128-d blobs
+   of 1,024 points (each recovered) and on 5,120 latents, and its core
+   distances and MST edges bitwise on 1,024; ``evals.traverse.traverse_latent``
+   with 15 shifts, graded and circle, rendering off, on the epoch-20
+   weights in f32 (TF32 off) within ``TRAVERSE_CARD_CPU_TOL``. Then
+   ``utils.profiling``: ``trace`` writes ``build/analysis_trace/trace.json``
+   with kernel events, ``device_memory_stats`` names the card,
+   ``debug_nans`` raises on a NaN planted in the forward and in the
+   backward pass and not once it is off; and ``scrubvae_torch.plot``
+   imports without matplotlib. Prints each step's time (GMM: k-means++,
+   EM per iteration; HDBSCAN: core distances, MST, tree) beside the card's
+   name and power limit.
+
 Prints one JSON line describing the kernels, the card's name and power limit
 again, then, as its last line, the device record. Needs one CUDA GPU and
 ``nvcc``; exits non-zero without them.
@@ -213,7 +246,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
 ADAMW_FLOPS_PER_ELEM = 20
 ROOT = pathlib.Path(__file__).resolve().parent
-PHASES = ("kernel", "parity", "path", "fit", "full", "bench", "x360", "models", "surface")
+PHASES = ("kernel", "parity", "path", "fit", "full", "bench", "x360", "models", "surface", "analysis")
 DEVICE = "cuda"
 
 
@@ -244,22 +277,31 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+# profiling sessions device_ms runs before it fails for want of device time
+PROFILER_SESSIONS = 3
+
+
 def device_ms(fn, iters: int = 50) -> float:
     """Device time of one call of ``fn``: every kernel it launches, summed
-    over ``iters`` calls by torch.profiler, over ``iters``."""
+    over ``iters`` calls by torch.profiler, over ``iters``. A profiling
+    session that delivers no kernel record at all (seen once on the card,
+    on the discriminator's 22-leaf pass) is run again, up to
+    ``PROFILER_SESSIONS`` in all; none with device time fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
-    if busy <= 0:
-        raise AssertionError("device_ms: the profiler saw no device time")
-    return busy / 1e3 / iters
+    for _ in range(PROFILER_SESSIONS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+        if busy > 0:
+            return busy / 1e3 / iters
+        log("device_ms: a profiling session saw no device time; running it again")
+    raise AssertionError(f"device_ms: the profiler saw no device time in {PROFILER_SESSIONS} sessions")
 
 
 # ---------------------------------------------------------------------------
@@ -912,10 +954,11 @@ def decodability_card_vs_cpu(z: np.ndarray, val_ds, window: int) -> dict:
     return rec
 
 
-def fit_phase(card: str) -> dict:
+def fit_phase(card: str, keep: pathlib.Path = None) -> dict:
     """``train(config, datasets, model, info)`` for epochs 11 to 20 at full
     flagship width, then a resume from epoch 20 for epoch 21 (see the
-    module docstring)."""
+    module docstring). With ``keep``, the run's folder (config, weights at
+    15 and 20) is moved there for the analysis phase."""
     import csv
 
     from scrubvae_torch import bench, factory
@@ -1057,6 +1100,8 @@ def fit_phase(card: str) -> dict:
             "r2_gen_restrict_epoch20": {k: float(rows[-1][k]) for k in test_keys[1:]},
         }
         log("fit flagship train entry point: " + json.dumps(rec))
+        if keep is not None:
+            shutil.move(str(run), str(keep))
         return rec
     finally:
         timer.undo()
@@ -2718,6 +2763,432 @@ def surface_phase(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: offline analysis
+# ---------------------------------------------------------------------------
+
+ANALYSIS_EPOCHS = (15, 20)
+# the fit phase's val split (4 ids x 2600 frames) tenfold: 51,900 windows
+ANALYSIS_VAL_FRAMES = 26000
+ANALYSIS_Z_DIM = 128
+ANALYSIS_COMPONENTS = 25
+ANALYSIS_MIN_SAMPLES = 500
+# card against CPU: float64 GMM on this many latents (2,048 to 5,120), the
+# parameters within GMM_CARD_CPU_RTOL of the largest entry (EM on the two
+# devices differs by the order of float64 sums, about 1e-14)
+GMM_CPU_ROWS = 5120
+GMM_CARD_CPU_RTOL = 1e-8
+# card against CPU in float32 on the same latents: EM for GMM_F32_ITERS
+# iterations, fewer than the 16 to 21 float64 EM takes there, so that
+# neither device stops at sklearn's tol on a rounding difference; weights,
+# means and covariances within the CPU tests' float32 bound of the largest
+# entry (tests/test_torch_port_cluster.py); labels differing on at most
+# GMM_F32_LABELS rows (0.1%: a label moves only where two components'
+# float32 log-likelihoods tie within rounding). The precision factors are
+# the inverse Cholesky factors of covariances whose condition number
+# reaches 1.5e7 on these latents, so their float32 error scales with it:
+# each device's are held against float64 factors of its own covariances
+# within kappa * eps(float32) of the component's largest entry (the
+# first-order bound for an inverse; on an H100 80GB HBM3 at 700 W the
+# card's reached 0.078 of it, the host CPU's 0.016)
+GMM_F32_ITERS = 10
+GMM_F32_RTOL = 1e-4
+GMM_F32_LABELS = 5
+# the full-size float32 GMM against a float64 E-step on the host with its
+# own fitted parameters: labels differing on at most 0.1% of the rows, the
+# mean log-likelihood within sklearn's tol (EM's own resolution of it), and
+# EM's ascent: the last M-step's parameters score at least the last lower
+# bound, less that tol
+GMM_FULL_LABEL_SHARE = 1e-3
+GMM_LOGLIK_TOL = 1e-3
+# HDBSCAN card against CPU: 5 planted 128-d blobs of 1,024 points at
+# min_samples 500, and this many latents at min_samples 50
+HDBSCAN_BLOBS = (5, 1024)
+HDBSCAN_CPU_ROWS = 5120
+HDBSCAN_CPU_MIN_SAMPLES = 50
+# traversal card against CPU, f32 with TF32 off: the bound the CPU tests
+# hold the port to JAX with (tests/test_torch_port_traverse.py), one f32
+# decoder pass and an 18-joint FK chain, relative to the largest coordinate
+TRAVERSE_SHIFTS = 15
+TRAVERSE_INDEX = 1000
+TRAVERSE_CARD_CPU_TOL = 1e-4
+
+
+def _analysis_weights(run: pathlib.Path) -> dict:
+    """The fit phase's config trained to epoch 20 with decodability off
+    (``train.minimal_test``), into ``run``: weights at 15 and 20."""
+    from scrubvae_torch import bench, factory
+    from scrubvae_torch.ops import fused_adamw as fa
+    from scrubvae_torch.train import trainer as trainer_mod
+
+    datasets = _fit_splits()
+    config = _fit_config(run, model={"start_epoch": FIT_START}, minimal_test=True)
+    model, info = factory.build_model(
+        config["model"], config["disentangle"], n_keypts=18, direction_process="midfwd",
+        arena_size=bench.ARENA, discrete_classes=datasets["train"].discrete_classes,
+        loss_keys=config["loss"].keys(), device=DEVICE,
+    )
+    fa.fused_adamw_multi.launches = 0
+    fa.fused_adamw_leaf.launches = 0
+    t0 = time.perf_counter()
+    trainer = trainer_mod.train(config, datasets, model, info, device=DEVICE)
+    torch.cuda.synchronize()
+    launches = fa.fused_adamw_multi.launches + fa.fused_adamw_leaf.launches
+    steps = trainer.steps_per_epoch * (FIT_EPOCHS - FIT_START)
+    if launches != 2 * steps:
+        raise AssertionError(f"analysis: {launches} optimizer launches in {steps} steps; expected 2 a step")
+    if list(factory.all_saved_epochs(run)) != list(ANALYSIS_EPOCHS):
+        raise AssertionError(f"analysis: weights at {factory.all_saved_epochs(run)}")
+    return {"train_s": time.perf_counter() - t0, "steps": steps, "optimizer_launches": launches}
+
+
+def _timed(fn, *a, **k):
+    """(result, seconds) of ``fn``, between two synchronizes."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*a, **k)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _rel(a, b) -> float:
+    return float(np.abs(np.asarray(a) - np.asarray(b)).max() / np.abs(np.asarray(b)).max())
+
+
+def gmm_card_vs_cpu(z: np.ndarray, dtype) -> dict:
+    """The GMM (25 components, full) on ``GMM_CPU_ROWS`` latents in
+    ``dtype`` on the card and on the CPU from the same ``np.random.seed``:
+    the same k-means++ centres and ``n_iter_``. In float64, 150 iterations
+    at most, identical labels and the parameters within
+    ``GMM_CARD_CPU_RTOL``; in float32, ``GMM_F32_ITERS`` iterations, the
+    bounds stated at ``GMM_F32_ITERS``."""
+    from scrubvae_torch.evals import cluster
+
+    x = z[np.random.RandomState(5).choice(len(z), GMM_CPU_ROWS, replace=False)].astype(dtype)
+    f32 = dtype == np.float32
+    picks = {d: cluster.kmeans_plusplus(torch.as_tensor(x, device=d), ANALYSIS_COMPONENTS, np.random.RandomState(6))
+             for d in (DEVICE, "cpu")}
+    fits, secs = {}, {}
+    for d in (DEVICE, "cpu"):
+        np.random.seed(6)
+        gm = cluster.GaussianMixture(ANALYSIS_COMPONENTS, "full", max_iter=GMM_F32_ITERS if f32 else 150,
+                                     reg_covar=1e-5)
+        with warnings.catch_warnings():
+            # float32 stops at GMM_F32_ITERS on purpose
+            warnings.simplefilter("ignore", cluster.ConvergenceWarning)
+            fits[d], secs[d] = _timed(gm.fit, x, device=d)
+    card, cpu = fits[DEVICE], fits["cpu"]
+    rec = {
+        "dtype": np.dtype(dtype).name, "rows": len(x), "kmeans_pp_equal": bool((picks[DEVICE] == picks["cpu"]).all()),
+        "n_iter": [card.n_iter_, cpu.n_iter_], "converged": [card.converged_, cpu.converged_],
+        "lower_bound": [card.lower_bound_, cpu.lower_bound_],
+        "labels_differing": int((card.predict(x, device=DEVICE) != cpu.predict(x, device="cpu")).sum()),
+        **{f"{name}_rel": _rel(getattr(card, f"{name}_"), getattr(cpu, f"{name}_"))
+           for name in ("weights", "means", "covariances")},
+        "card_s": secs[DEVICE], "cpu_s": secs["cpu"],
+    }
+    rtol, labels_ok = (GMM_F32_RTOL, GMM_F32_LABELS) if f32 else (GMM_CARD_CPU_RTOL, 0)
+    ok = rec["kmeans_pp_equal"] and card.n_iter_ == cpu.n_iter_ and rec["labels_differing"] <= labels_ok and all(
+        rec[f"{name}_rel"] <= rtol for name in ("weights", "means", "covariances")
+    )
+    if f32:
+        # each device's precision factors against float64 factors of its own
+        # covariances, component by component, over kappa * eps(float32)
+        share, kappa = {}, {}
+        for d, gm in ((DEVICE, card), ("cpu", cpu)):
+            cov = gm.covariances_.astype(np.float64)
+            want = cluster._compute_precision_cholesky(torch.as_tensor(cov), "full").numpy()
+            err = np.abs(gm.precisions_cholesky_ - want).max(axis=(1, 2)) / np.abs(want).max(axis=(1, 2))
+            kappa[d] = np.linalg.cond(cov)
+            share[d] = float((err / (kappa[d] * np.finfo(np.float32).eps)).max())
+        rec["precisions_cholesky_rel"] = _rel(card.precisions_cholesky_, cpu.precisions_cholesky_)
+        rec["covariance_kappa_max"] = float(kappa[DEVICE].max())
+        rec["precisions_cholesky_share_of_bound"] = [share[DEVICE], share["cpu"]]
+        ok = ok and max(share.values()) <= 1.0
+    if not ok:
+        raise AssertionError(f"analysis: GMM card against CPU: {rec}")
+    return rec
+
+
+def gmm_against_float64(gm, z: np.ndarray, labels: np.ndarray) -> dict:
+    """The full-size float32 GMM ``gm`` and its ``labels`` on the card
+    against a float64 E-step on the host with ``gm``'s own parameters: the
+    labels differing on at most ``GMM_FULL_LABEL_SHARE`` of the rows; the
+    mean log-likelihood on the card within ``GMM_LOGLIK_TOL`` of the
+    host's; and that value at least ``gm.lower_bound_`` less
+    ``GMM_LOGLIK_TOL`` (EM's ascent through the last M-step)."""
+    from scrubvae_torch.evals import cluster
+
+    def e_step(x: torch.Tensor, logsumexp):
+        params = [torch.as_tensor(p).to(device=x.device, dtype=x.dtype)
+                  for p in (gm.weights_, gm.means_, gm.precisions_cholesky_)]
+        weighted = gm._weighted_log_prob(x, *params)
+        return weighted.argmax(1).cpu().numpy(), float(logsumexp(weighted).mean())
+
+    # the host's log-sum-exp is torch's own, not the port's
+    card_labels, card_ll = e_step(torch.as_tensor(z, device=DEVICE), cluster._logsumexp)
+    host_labels, host_ll = e_step(torch.as_tensor(z, dtype=torch.float64), lambda w: torch.logsumexp(w, dim=1))
+    rec = {
+        "labels_differing_from_float64": int((labels != host_labels).sum()),
+        "predict_equals_card_estep": bool((labels == card_labels).all()),
+        "loglik_card_f32": card_ll, "loglik_host_f64": host_ll, "lower_bound": gm.lower_bound_,
+    }
+    if not (rec["predict_equals_card_estep"]
+            and rec["labels_differing_from_float64"] <= GMM_FULL_LABEL_SHARE * len(z)
+            and abs(card_ll - host_ll) <= GMM_LOGLIK_TOL and host_ll >= gm.lower_bound_ - GMM_LOGLIK_TOL):
+        raise AssertionError(f"analysis: the float32 GMM against a float64 E-step: {rec}")
+    return rec
+
+
+def hdbscan_card_vs_cpu(z: np.ndarray) -> dict:
+    """HDBSCAN labels on the card and on the CPU, identical on planted
+    blobs (each recovered) and on a subset of the latents."""
+    from scrubvae_torch.evals import cluster
+
+    n_blobs, per = HDBSCAN_BLOBS
+    rng = np.random.default_rng(9)
+    blobs = np.concatenate([rng.normal(size=(per, ANALYSIS_Z_DIM)) + rng.normal(size=ANALYSIS_Z_DIM) * 3
+                            for _ in range(n_blobs)])
+    sub = z[np.random.RandomState(10).choice(len(z), HDBSCAN_CPU_ROWS, replace=False)]
+    rec, card_labels = {}, {}
+    for name, x, k in (("blobs", blobs, ANALYSIS_MIN_SAMPLES), ("latents", sub, HDBSCAN_CPU_MIN_SAMPLES)):
+        (card, card_s), (cpu, cpu_s) = (_timed(cluster.hdbscan, x, min_cluster_size=k, device=d) for d in (DEVICE, "cpu"))
+        card_labels[name] = card
+        rec[name] = {
+            "rows": len(x), "min_samples": k, "labels_differing": int((card != cpu).sum()),
+            "clusters": int(card.max() + 1), "noise": int((card == -1).sum()), "card_s": card_s, "cpu_s": cpu_s,
+        }
+        if rec[name]["labels_differing"]:
+            raise AssertionError(f"analysis: HDBSCAN card against CPU on {name}: {rec[name]}")
+    # the core distances and the MST's edges themselves, bitwise (the card
+    # replays captured graphs, the CPU steps eagerly), on 1,024 latents
+    x = torch.as_tensor(sub[:1024], dtype=torch.float64)
+    parts = {}
+    for d in (DEVICE, "cpu"):
+        core = cluster._core_sq(x.to(d), HDBSCAN_CPU_MIN_SAMPLES)
+        parts[d] = [core.cpu().numpy(), *cluster._prim_mst(x.to(d), core)]
+    rec["core_and_mst_bitwise"] = all(np.array_equal(a, b) for a, b in zip(parts[DEVICE], parts["cpu"]))
+    if not rec["core_and_mst_bitwise"]:
+        raise AssertionError("analysis: HDBSCAN core distances or MST edges differ between the card and the CPU")
+    # each blob recovered: nine tenths of it in a cluster of its own
+    owners = []
+    for b in np.split(card_labels["blobs"], n_blobs):
+        owners.append(np.bincount(b[b >= 0]).argmax() if (b >= 0).any() else -1)
+        if owners[-1] < 0 or (b == owners[-1]).mean() < 0.9:
+            raise AssertionError(f"analysis: a planted blob was not recovered: {np.unique(b, return_counts=True)}")
+    if len(set(owners)) != n_blobs:
+        raise AssertionError(f"analysis: the planted blobs share clusters: {owners}")
+    return rec
+
+
+def traverse_card_vs_cpu(run: pathlib.Path, config: dict, val_card, val_cpu, z: np.ndarray) -> dict:
+    """``traverse_latent`` with 15 shifts, graded and circle, rendering off,
+    of the epoch-20 weights at full width in f32 on the card and on the
+    CPU; the poses within ``TRAVERSE_CARD_CPU_TOL``."""
+    from scrubvae_torch import factory
+    from scrubvae_torch.evals.traverse import traverse_latent
+    from scrubvae_torch.utils import checkpoint as ckpt
+
+    models = {}
+    for d, ds in ((DEVICE, val_card), ("cpu", val_cpu)):
+        models[d], _ = factory.build_model(
+            dict(config["model"], precision="fp32"), config["disentangle"], n_keypts=ds.n_keypts,
+            direction_process="midfwd", arena_size=ds.arena_size, discrete_classes=ds.discrete_classes, device=d,
+        )
+        ckpt.load_weights(run, ANALYSIS_EPOCHS[-1], models[d])
+    weights = {
+        "graded": models["cpu"].linear["avg_speed_3d"].weight.detach().numpy(),
+        "circle": np.random.RandomState(3).normal(size=(2, z.shape[1])).astype(np.float32),
+    }
+    rec = {}
+    for name, w in weights.items():
+        kw = dict(index=TRAVERSE_INDEX, n_shifts=TRAVERSE_SHIFTS, circle=name == "circle",
+                  grid_vis=False, arena_vis=False, static_vis=False)
+        (card, card_s), (cpu, cpu_s) = (_timed(traverse_latent, models[d], ds, z, w, **kw)
+                                        for d, ds in ((DEVICE, val_card), ("cpu", val_cpu)))
+        rec[name] = {"shape": list(card.shape), "rel_err": _rel(card, cpu), "card_s": card_s, "cpu_s": cpu_s}
+        if card.shape != (TRAVERSE_SHIFTS * 51, 18, 3) or not np.isfinite(card).all() or not (
+            rec[name]["rel_err"] <= TRAVERSE_CARD_CPU_TOL
+        ):
+            raise AssertionError(f"analysis: traversal {name}, card against CPU: {rec[name]}")
+    return rec
+
+
+def profiling_checks() -> dict:
+    """``trace`` writes a Chrome trace under ``build/`` with device events,
+    ``device_memory_stats`` names the card, ``debug_nans`` raises on a NaN
+    planted in the forward and in the backward pass and not once it is
+    off."""
+    from scrubvae_torch.utils import profiling
+
+    with profiling.trace(str(ROOT / "build" / "analysis_trace")) as path:
+        a = torch.randn(512, 512, device=DEVICE)
+        (a @ a).sum().item()
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    stats = profiling.device_memory_stats()
+    name = torch.cuda.get_device_name(0) if torch.cuda.is_available() else "cpu"
+    if not pathlib.Path(path).is_file() or (torch.cuda.is_available() and (
+        kernels == 0 or not any(name in k for k in stats)
+    )):
+        raise AssertionError(f"analysis: trace {path} with {kernels} kernel events, memory stats of {list(stats)}")
+    raised = {}
+    x = torch.tensor([1.0, 0.0], device=DEVICE)
+    w = torch.tensor([0.0, 4.0], device=DEVICE, requires_grad=True)
+    mask = torch.tensor([0.0, 1.0], device=DEVICE)
+    for part in ("forward", "backward"):
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                with profiling.debug_nans():
+                    if part == "forward":
+                        (torch.log(x) - torch.log(x)).sum().item()
+                    else:
+                        (torch.sqrt(w) * mask).sum().backward()
+        except (FloatingPointError, RuntimeError) as e:
+            raised[part] = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    w.grad = None
+    (torch.sqrt(w) * mask).sum().backward()  # off: the NaN goes through
+    quiet = bool(torch.isnan(w.grad[0])) and not torch.is_anomaly_enabled()
+    if "FloatingPointError" not in raised.get("forward", "") or "backward" not in raised or not quiet:
+        raise AssertionError(f"analysis: debug_nans raised {raised}, quiet when off: {quiet}")
+    return {"trace": str(pathlib.Path(path).relative_to(ROOT)), "trace_kernel_events": kernels,
+            "memory_stats_devices": list(stats), "debug_nans_raised": raised}
+
+
+def analysis_phase(card: str, tmp: pathlib.Path) -> dict:
+    """Latents, GMM, cluster entropy, HDBSCAN and traversal at full flagship
+    width on the fit phase's weights (see the module docstring)."""
+    import yaml
+
+    from scrubvae_torch import factory
+    from scrubvae_torch.data.skeleton import load_skeleton
+    from scrubvae_torch.data.synthetic import synthetic_pose_stream
+    from scrubvae_torch.evals import cluster
+    from scrubvae_torch.evals import metrics as em
+    from scrubvae_torch.evals.latents import latents
+    from scrubvae_torch.params import read
+
+    t_phase = time.perf_counter()
+    rec = {"card": card}
+    run = tmp / "fit_run"
+    if not run.is_dir():
+        rec["training"] = _analysis_weights(run)
+    # the val split tenfold; the card's machine has no h5py, so the pose
+    # file is a placeholder and factory.read_pose_h5 serves it from memory
+    skel = load_skeleton(ROOT / "configs" / "mouse_skeleton.yaml")
+    arrays = synthetic_pose_stream(skel, n_frames=ANALYSIS_VAL_FRAMES * 4, n_ids=4, seed=1)
+    data = tmp / "data"
+    (data / "synthetic" / "val").mkdir(parents=True)
+    (data / "synthetic" / "val" / "pose.h5").touch()
+    shutil.copy(ROOT / "configs" / "mouse_skeleton.yaml", data / "mouse_skeleton.yaml")
+    cfg = yaml.safe_load((run / "model_config.yaml").read_text())
+    # the config reader wrote the folder's path it was read in; the fit
+    # phase's folder has moved since
+    cfg["out_path"] = "current"
+    cfg["data"]["data_path"] = str(data) + "/"
+    (run / "model_config.yaml").write_text(yaml.safe_dump(cfg))
+    config = read.config(run / "model_config.yaml", make_dirs=False)
+    read_pose_h5 = factory.read_pose_h5
+    timer = _Timer()
+    try:
+        factory.read_pose_h5 = lambda path: arrays
+        # the keys the per-epoch harness loads, and the offsets the traversal's FK reads
+        keys = ("x6d", "root", "avg_speed_3d", "heading", "offsets")
+        val, rec["val_split_s"] = _timed(factory.mouse_data, config["data"], "val", data_keys=keys, window=51,
+                                         device=DEVICE)
+        z, rec["latents_s"] = {}, {}
+        for e in ANALYSIS_EPOCHS:
+            z[e], rec["latents_s"][e] = _timed(latents, config, epoch=e, dataset=val, label="val", device=DEVICE)
+            if z[e].shape != (len(val), ANALYSIS_Z_DIM) or z[e].dtype != np.float32 or not np.isfinite(z[e]).all():
+                raise AssertionError(f"analysis: epoch {e} latents {z[e].shape} {z[e].dtype}")
+        rec["val_windows"] = len(val)
+
+        # the GMM at its defaults on the float32 latents of epoch 15
+        for owner, name, label in ((cluster, "kmeans_plusplus", "kmeans_pp"), (cluster.GaussianMixture, "fit", "em"),
+                                   (cluster.GaussianMixture, "predict", "predict")):
+            timer.wrap(owner, name, label)
+        np.random.seed(0)
+        (k15, gm), gmm_s = _timed(cluster.gmm, z[15], label="val_15", path=str(run) + "/", device=DEVICE)
+        em_ms = timer.total_ms("em") - timer.total_ms("kmeans_pp")
+        rec["gmm"] = {
+            "total_s": gmm_s, "kmeans_pp_ms": timer.total_ms("kmeans_pp"), "em_ms": em_ms,
+            "em_ms_per_iter": em_ms / max(gm.n_iter_, 1), "predict_ms": timer.total_ms("predict"),
+            "n_iter": gm.n_iter_, "converged": gm.converged_, "lower_bound": gm.lower_bound_,
+            "min_weight": float(gm.weights_.min()), "clusters_used": int(len(np.unique(k15))),
+        }
+        timer.undo()
+        if not (gm.weights_ > 0).all() or gm.means_.dtype != np.float32 or len(gm.weights_) != ANALYSIS_COMPONENTS:
+            raise AssertionError(f"analysis: GMM {rec['gmm']}")
+        log(f"analysis GMM ({card}): " + json.dumps(rec["gmm"]))
+        rec["gmm_against_float64"] = gmm_against_float64(gm, z[15], k15)
+        log("analysis GMM, against a float64 E-step: " + json.dumps(rec["gmm_against_float64"]))
+        rec["gmm_card_vs_cpu"] = [gmm_card_vs_cpu(z[20], dtype) for dtype in (np.float64, np.float32)]
+        log("analysis GMM, card against CPU: " + json.dumps(rec["gmm_card_vs_cpu"]))
+
+        # epoch 20 against epoch 15's cached clustering
+        np.random.seed(1)
+        ent, rec["entropy_s"] = _timed(
+            em.epoch_cluster_entropy, str(run), "cluster_entropy", "val", save_load=False, start_epoch=15,
+            comparison_clustering=str(run / "val_15_gmm.npy"), device=DEVICE,
+        )
+        rec["entropy"] = ent["Entropy"]
+        if list(ent["epochs"]) != [20] or not all(
+            math.isfinite(v) and 0.0 <= v <= math.log2(ANALYSIS_COMPONENTS) for v in ent["Entropy"]
+        ):
+            raise AssertionError(f"analysis: cluster entropy {ent}")
+
+        # HDBSCAN at min_samples 500 on every latent of epoch 20
+        tree_parts = ("_single_linkage", "_condense_tree", "_compute_stability", "_eom_labels")
+        for name in ("_core_sq", "_prim_mst") + tree_parts:
+            timer.wrap(cluster, name, name.strip("_"))
+        labels, hdb_s = _timed(cluster.dbscan, z[20], min_samples=ANALYSIS_MIN_SAMPLES, label="val_20",
+                               path=str(run) + "/", device=DEVICE)
+        core_ms, mst_ms = timer.total_ms("core_sq"), timer.total_ms("prim_mst")
+        tree_ms = sum(timer.total_ms(name.strip("_")) for name in tree_parts)
+        timer.undo()
+        # the MST's least time: each out-of-tree row of the 128 float64
+        # features read once a step, n (n - 1) / 2 rows in all
+        n = len(labels)
+        rec["hdbscan"] = {
+            "total_s": hdb_s, "core_distances_ms": core_ms, "mst_ms": mst_ms,
+            "mst_bytes_bound_ms": n * (n - 1) / 2 * ANALYSIS_Z_DIM * 8 / HBM_BYTES_PER_S * 1e3,
+            "tree_ms": tree_ms, "rest_ms": hdb_s * 1e3 - core_ms - mst_ms - tree_ms, "clusters": int(labels.max() + 1),
+            "noise": int((labels == -1).sum()),
+        }
+        if labels.shape != (len(val),) or not (run / "val_20_sc_pred.npy").is_file():
+            raise AssertionError(f"analysis: HDBSCAN labels {labels.shape}")
+        log(f"analysis HDBSCAN ({card}): " + json.dumps(rec["hdbscan"]))
+        rec["hdbscan_card_vs_cpu"] = hdbscan_card_vs_cpu(z[20])
+        log("analysis HDBSCAN, card against CPU: " + json.dumps(rec["hdbscan_card_vs_cpu"]))
+
+        val_cpu = factory.mouse_data(config["data"], "val", data_keys=keys, window=51, device="cpu")
+        rec["traversal"] = traverse_card_vs_cpu(run, config, val, val_cpu, z[20])
+    finally:
+        timer.undo()
+        factory.read_pose_h5 = read_pose_h5
+    # in a process of its own: after the earlier phases' profiler sessions,
+    # CUPTI once delivered no kernel record to a later session in the same
+    # process, while a fresh process's trace holds them
+    res = subprocess.run(
+        [sys.executable, "-c", "import json, sys; sys.path.insert(0, '.'); import chip_smoke; "
+         "print(json.dumps(chip_smoke.profiling_checks()))"], cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+    if res.returncode != 0:
+        raise AssertionError(f"analysis: profiling checks: {res.stdout[-2000:]} {res.stderr[-4000:]}")
+    rec["profiling"] = json.loads(res.stdout.strip().splitlines()[-1])
+    res = subprocess.run(
+        [sys.executable, "-c", "import sys; sys.modules['matplotlib'] = None; import scrubvae_torch.plot, "
+         "scrubvae_torch.evals"], cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    if res.returncode != 0:
+        raise AssertionError(f"analysis: the port's plot package needs matplotlib to import: {res.stderr}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"analysis phase ({card}): " + json.dumps(rec))
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2861,17 +3332,25 @@ def main() -> int:
             profile_phase(flagship[0], rows, loss_scale)
     flagship = None  # frees the path phase's trainer before the fit phase
     torch.cuda.empty_cache()
-    fit = fit_phase(smi[0] if smi else "nvidia-smi: no output") if "fit" in phases else None
-    torch.cuda.empty_cache()
-    full = full_phase(smi[0] if smi else "nvidia-smi: no output") if "full" in phases else None
-    torch.cuda.empty_cache()
-    bench = bench_phase() if "bench" in phases else None
-    torch.cuda.empty_cache()
-    x360 = x360_phase(smi[0] if smi else "nvidia-smi: no output") if "x360" in phases else None
-    torch.cuda.empty_cache()
-    models = models_phase(smi[0] if smi else "nvidia-smi: no output") if "models" in phases else None
-    torch.cuda.empty_cache()
-    surface = surface_phase(smi[0] if smi else "nvidia-smi: no output") if "surface" in phases else None
+    card = smi[0] if smi else "nvidia-smi: no output"
+    analysis_tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_analysis_"))
+    try:
+        fit = fit_phase(card, keep=analysis_tmp / "fit_run" if "analysis" in phases else None) if "fit" in phases else None
+        torch.cuda.empty_cache()
+        full = full_phase(card) if "full" in phases else None
+        torch.cuda.empty_cache()
+        bench = bench_phase() if "bench" in phases else None
+        torch.cuda.empty_cache()
+        x360 = x360_phase(card) if "x360" in phases else None
+        torch.cuda.empty_cache()
+        models = models_phase(card) if "models" in phases else None
+        torch.cuda.empty_cache()
+        surface = surface_phase(card) if "surface" in phases else None
+        torch.cuda.empty_cache()
+        if "analysis" in phases:
+            analysis_phase(card, analysis_tmp)
+    finally:
+        shutil.rmtree(analysis_tmp, ignore_errors=True)
     if kernel is not None and path is not None:
         log(json.dumps(kernels_line(kernel, path, fit, full, bench, x360, models, surface)))
     log(smi[0] if smi else "nvidia-smi: no output")

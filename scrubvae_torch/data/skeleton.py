@@ -1,13 +1,14 @@
 """Skeleton configuration loading (the port's own copy of the part of
-``scrubvae_tpu/data/skeleton.py`` the train step needs): labels, the
-compiled kinematic tree and whether the yaml offsets are integers.
+``scrubvae_tpu/data/skeleton.py`` the train step and the renderers need):
+labels, the compiled kinematic tree, whether the yaml offsets are
+integers, and the segments the renderers draw.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from pathlib import Path
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import yaml
@@ -29,6 +30,8 @@ class Skeleton:
     # pipeline replicates that when this flag is set (see
     # data.pipeline.build_frame_store; deviation gate data.exact_offsets).
     int_offsets: bool = False
+    # (S, 2) keypoint index pairs the renderers draw (yaml SEGMENTS)
+    segments: Optional[np.ndarray] = dataclasses.field(default=None, compare=False)
 
     @property
     def n_keypts(self) -> int:
@@ -46,4 +49,9 @@ def load_skeleton(path: str | Path) -> Skeleton:
     # dtype the reference would see: np.array of the raw yaml lists
     # (int64 for the shipped integer-valued mouse_skeleton.yaml)
     int_offsets = np.issubdtype(np.asarray(cfg["OFFSET"]).dtype, np.integer)
-    return Skeleton(labels=list(cfg["LABELS"]), tree=tree, int_offsets=bool(int_offsets))
+    return Skeleton(
+        labels=list(cfg["LABELS"]),
+        tree=tree,
+        int_offsets=bool(int_offsets),
+        segments=np.asarray(cfg.get("SEGMENTS", []), dtype=np.int32),
+    )

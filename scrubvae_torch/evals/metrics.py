@@ -2,7 +2,8 @@
 (counterpart of ``scrubvae_tpu/evals/metrics.py``): window-downsampled
 5-fold CV of linear and MLP regressions and of elastic-net logistic, QDA
 and LDA classifications of a factor from the latent, the pickle-cached
-per-saved-epoch sweep, MMD, Shannon entropy and Hungarian matching.
+per-saved-epoch sweeps (decodability and GMM cluster entropy), MMD, Shannon
+entropy and Hungarian matching.
 
 The folds are sklearn's ``KFold(n_splits, shuffle=True, random_state=100)``,
 drawn on the host by ``kfold_indices``; the estimators are torch code in
@@ -40,6 +41,7 @@ __all__ = [
     "hungarian_match",
     "epoch_metric",
     "epoch_regression",
+    "epoch_cluster_entropy",
 ]
 
 train_mlp_probe = probes.train_mlp_probe
@@ -339,4 +341,52 @@ def epoch_regression(
                 metrics[key]["Accuracy"].append(log_class_rand_cv(z, y.long(), class_window, 5, device=device))
             elif method == "qda_rand_cv":
                 metrics[key]["Accuracy"].append(qda_rand_cv(z, y.long(), class_window, 5, device=device))
+    return metrics
+
+
+@epoch_metric
+def epoch_cluster_entropy(
+    config,
+    dataset,
+    epochs_to_test,
+    metrics,
+    dataset_label,
+    comparison_clustering=None,
+    n_components=25,
+    device=None,
+    **kwargs,
+):
+    """Cross-model GMM cluster entropy per epoch (reference
+    metrics.py:91-147): each epoch's latents clustered by the port's
+    ``GaussianMixture`` on ``device``, against the cluster labels saved in
+    ``comparison_clustering``."""
+    from scrubvae_torch.evals.cluster import GaussianMixture
+    from scrubvae_torch.evals.latents import latents as get_latents
+
+    if "Entropy" not in metrics:
+        metrics["Entropy"] = []
+    k_preds0 = np.load(comparison_clustering)
+    # the comparison clustering must cover the dataset sample for sample or
+    # the per-cluster histograms are garbage (reference metrics.py:105)
+    assert len(dataset) == len(k_preds0), (
+        f"comparison clustering has {len(k_preds0)} predictions for "
+        f"{len(dataset)} dataset samples"
+    )
+
+    for epoch in epochs_to_test:
+        z = get_latents(config, epoch=epoch, dataset=dataset, label=dataset_label, device=device)
+        k_preds1 = GaussianMixture(
+            n_components=n_components,
+            covariance_type="diag" if config["model"].get("diag") else "full",
+            max_iter=150,
+            reg_covar=1e-5,
+        ).fit_predict(z, device=device)
+        entropy = 0.0
+        for i in range(n_components):
+            sel = k_preds1 == i
+            if sel.sum() == 0:
+                continue
+            hist = np.histogram(k_preds0[sel], bins=np.arange(k_preds0.max() + 2) - 0.5)[0] / sel.sum()
+            entropy += np.nan_to_num(hist * np.log2(1 / np.where(hist > 0, hist, 1))).sum()
+        metrics["Entropy"].append(entropy / n_components)
     return metrics

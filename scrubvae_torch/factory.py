@@ -48,6 +48,7 @@ __all__ = [
     "mouse_data",
     "data_and_model",
     "all_saved_epochs",
+    "latents",
 ]
 
 
@@ -460,3 +461,11 @@ def all_saved_epochs(path: str) -> np.ndarray:
     """Epoch numbers with saved weights (reference get/get.py:78-84)."""
     epochs = {int(re.findall(r"\d+", f.name)[0]) for f in (Path(path) / "weights").glob("epoch*")}
     return np.asarray(sorted(epochs), dtype=int)
+
+
+def latents(*args, **kwargs):
+    """``evals.latents.latents`` (the reference exposes it as
+    ``get.latents``)."""
+    from scrubvae_torch.evals.latents import latents as _latents
+
+    return _latents(*args, **kwargs)

@@ -27,6 +27,7 @@ __all__ = [
     "speed_parts",
     "frame_yaw",
     "angle2D",
+    "angle_from_2D",
     "normalize_root",
     "inv_normalize_root",
 ]
@@ -109,18 +110,6 @@ def inv_kin(
     return torch.cat([root_quat.unsqueeze(-2), local[..., 1:, :]], dim=-2)
 
 
-def _cont6d_to_matrix_smooth(c6d: torch.Tensor, eps_eff: float) -> torch.Tensor:
-    """Column-convention cont6d -> (..., 3, 3) with the smooth rsqrt
-    normalisation rsqrt(|v|^2 + eps^2) (finite gradient at |v| = 0)."""
-    xr, yr = c6d[..., 0:3], c6d[..., 3:6]
-    e2 = eps_eff * eps_eff
-    cx = xr * torch.rsqrt(torch.sum(xr * xr, dim=-1, keepdim=True) + e2)
-    zr = torch.linalg.cross(cx, yr, dim=-1)
-    cz = zr * torch.rsqrt(torch.sum(zr * zr, dim=-1, keepdim=True) + e2)
-    cy = torch.linalg.cross(cz, cx, dim=-1)
-    return torch.stack([cx, cy, cz], dim=-1)  # columns x | y | z
-
-
 def fwd_kin_cont6d(
     cont6d: torch.Tensor,
     tree: KinematicTree,
@@ -138,7 +127,7 @@ def fwd_kin_cont6d(
     J = cont6d.shape[-2]
     x = cont6d.reshape(-1, J, 6)
     N = x.shape[0]
-    R = _cont6d_to_matrix_smooth(x, max(float(eps), 1e-6))  # (N, J, 3, 3)
+    R = qtn.cont6d_to_matrix(x, eps)  # (N, J, 3, 3)
     offs = offsets.to(cont6d.dtype)
     offs = offs.unsqueeze(0).expand(N, J, 3) if offs.dim() == 2 else offs.reshape(-1, J, 3)
     root = root_pos.reshape(-1, 3)
@@ -204,6 +193,12 @@ def angle2D(angle: torch.Tensor) -> torch.Tensor:
     """Radians (..., K) -> interleaved [sin, cos] pairs (..., 2K)."""
     out = torch.stack([torch.sin(angle), torch.cos(angle)], dim=-1)
     return out.reshape(angle.shape[:-1] + (-1,))
+
+
+def angle_from_2D(a2d: torch.Tensor) -> torch.Tensor:
+    """Interleaved [sin, cos] pairs (..., 2K) -> radians (..., K)."""
+    pairs = a2d.reshape(a2d.shape[:-1] + (-1, 2))
+    return torch.atan2(pairs[..., 0], pairs[..., 1])
 
 
 def normalize_root(root: torch.Tensor, arena_size: torch.Tensor) -> torch.Tensor:

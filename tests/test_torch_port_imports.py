@@ -21,7 +21,8 @@ def test_importing_every_module_pulls_in_no_jax():
         "ops.fused_adamw", "train.trainer", "params.read", "params.param_keys", "evals.restrictiveness",
         "train_model", "utils.checkpoint", "utils.logging", "data.pose_io", "evals.metrics", "evals.probes",
         "evals.latents", "bench", "models.base", "models.mlp_vae", "models.transformer",
-        "data.hoststream", "preprocess_data",
+        "data.hoststream", "preprocess_data", "evals.cluster", "evals.traverse", "plot", "plot.plot",
+        "plot.eval", "plot.pose_viz", "plot.constants", "utils.profiling", "models.mi",
     ):
         assert "scrubvae_torch." + m in mods, m
     code = (
@@ -62,6 +63,32 @@ def test_decodability_runs_without_sklearn_or_jax():
         "assert len(out) == 12 and all(np.isfinite(v) for v in out.values()), out\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'scrubvae_tpu')\n"
         "       or (m.startswith('sklearn') and sys.modules[m] is not None)]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_analysis_runs_without_sklearn_or_matplotlib():
+    """``evals.cluster``, ``evals.traverse`` and ``plot`` import, and a small
+    GMM and HDBSCAN run, with sklearn and matplotlib unimportable and
+    without pulling in JAX or the JAX package."""
+    code = (
+        "import sys\n"
+        "sys.modules['sklearn'] = None\n"
+        "sys.modules['matplotlib'] = None\n"
+        "import numpy as np\n"
+        "import scrubvae_torch.plot, scrubvae_torch.evals.traverse, scrubvae_torch.utils.profiling\n"
+        "from scrubvae_torch.evals import cluster\n"
+        "rng = np.random.default_rng(0)\n"
+        "z = np.concatenate([rng.normal(size=(60, 3)), rng.normal(size=(60, 3)) + 8.0])\n"
+        "k, model = cluster.gmm(z, n_components=2, device='cpu')\n"
+        "assert sorted(np.bincount(k)) == [60, 60], k\n"
+        "labels = cluster.dbscan(z, min_samples=10, path=None, device='cpu')\n"
+        "assert len(set(labels[:60]) - {-1}) == 1 and len(set(labels[60:]) - {-1}) == 1, labels\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'scrubvae_tpu')\n"
+        "       or (m.split('.')[0] in ('sklearn', 'matplotlib') and sys.modules[m] is not None)]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -149,3 +176,35 @@ def test_bare_cuda_resolves_to_the_current_device_index(monkeypatch):
     assert resolve_device("cuda") == resolve_device(None) == torch.device("cuda", 0)
     assert resolve_device("cuda:0") == torch.device("cuda", 0)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_analysis_entry_points_need_a_gpu_unless_cpu_is_asked_for(monkeypatch, tmp_path):
+    """``gmm``, ``dbscan``, ``GaussianMixture.predict`` and ``latents``
+    default to CUDA and raise without a GPU; ``device="cpu"`` runs them."""
+    from scrubvae_torch.evals import cluster
+    from scrubvae_torch.evals.latents import latents
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    z = np.random.default_rng(1).normal(size=(40, 3))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cluster.gmm(z, n_components=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cluster.dbscan(z, min_samples=5, path=None)
+    k, model = cluster.gmm(z, n_components=2, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.predict(z)
+    assert (model.predict(z, device="cpu") == k).all()
+    assert cluster.dbscan(z, min_samples=5, path=None, device="cpu").shape == (40,)
+
+    class Data:
+        n_keypts, arena_size, discrete_classes = 18, None, {}
+
+        def __len__(self):
+            return 4
+
+    config = {
+        "out_path": str(tmp_path), "model": {"type": "rcnn", "z_dim": 4, "window": 31, "channel": [8, 8, 16, 16, 32]},
+        "disentangle": {"method": {}, "features": []}, "data": {"direction_process": "midfwd"},
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        latents(config, epoch=5, dataset=Data())
