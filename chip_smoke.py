@@ -219,6 +219,38 @@ Phases (each one fails the run on error; nothing is caught and swallowed):
    EM per iteration; HDBSCAN: core distances, MST, tree) beside the card's
    name and power limit.
 
+14. serve: the serving path and the reference ``.pth`` interop. The
+   flagship (the path phase's model and conditionals, f32, weights from
+   ``factory.init_weights`` at seed 0, as ``python -m
+   scrubvae_torch.serve_bench --flagship`` builds it) is exported on the
+   card (``utils.export``: encoder, mu-only encoder, decoder, from an
+   example batch of 2) with the packed head's index cache emptied first, as
+   in a fresh exporting process; the packed head's eager outputs (eval
+   encoder, train-mode sampler, with deterministic algorithms) after the
+   exports must equal the ones before them bit for bit; ``encoder_mu.pt2``
+   must be smaller than ``encoder.pt2`` by at least 0.9 times
+   ``fc_sigma``'s bytes; each artifact, loaded with ``load_exported``, is
+   held against the eager model at batches 1, 8, 64 and 512 within
+   ``SERVE_TOL``; the encoder exported on the CPU from the same
+   weights, loaded onto the card, likewise at batch 64; then the three
+   artifacts are timed (``serve_bench.bench``, the lines of
+   ``--flagship``, each point over ``serve_bench.SECONDS`` of pipelined
+   windows with their spread), and at each batch size each call's device time
+   (torch.profiler, the median of ``SERVE_DEVICE_SESSIONS`` sessions with
+   their spread), the device's idle share of the pipelined latency, the
+   eager model's pipelined latency and the mu-only encoder's saving on the
+   device. Then a run the port trains and
+   saves (the flagship, bf16, 3 steps through ``Trainer`` at batch 512, 2
+   optimizer launches a step; weights at epoch 5; the pose arrays served
+   from memory through ``factory.read_pose_h5``) goes through ``python -m
+   scrubvae_torch.export_model``, its artifacts held against the trained
+   model at batch 64 within ``SERVE_TOL``, ``serve_bench --run``
+   (its lines printed) and ``export_torch``; the ``.pth`` imported into a
+   fresh model (``import_torch_weights``) must map every key, fill every
+   leaf and give the trained weights bit for bit (``num_batches_tracked``
+   0). Exporting and serving launch no optimizer kernel: serving trains
+   nothing, and the path has no kernel of its own.
+
 Prints one JSON line describing the kernels, the card's name and power limit
 again, then, as its last line, the device record. Needs one CUDA GPU and
 ``nvcc``; exits non-zero without them.
@@ -246,7 +278,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
 ADAMW_FLOPS_PER_ELEM = 20
 ROOT = pathlib.Path(__file__).resolve().parent
-PHASES = ("kernel", "parity", "path", "fit", "full", "bench", "x360", "models", "surface", "analysis")
+PHASES = ("kernel", "parity", "path", "fit", "full", "bench", "x360", "models", "surface", "analysis", "serve")
 DEVICE = "cuda"
 
 
@@ -3189,12 +3221,301 @@ def analysis_phase(card: str, tmp: pathlib.Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: serving
+# ---------------------------------------------------------------------------
+
+SERVE_BATCHES = (1, 8, 64, 512)
+SERVE_ITERS = 20
+SERVE_DEVICE_SESSIONS = 3
+# an artifact against the eager model on one device: the CPU tests'
+# tolerance (tests/test_torch_port_export.py), the root's atol through the
+# arena's half-width. The bf16 trained run is held to it too: its artifacts
+# run the eager model's aten calls, so they agree to the bit, while one
+# that lost the bf16 casts would miss by about 2**-8
+SERVE_TOL = (1e-4, 1e-5)
+SERVE_STEPS = 3
+SERVE_EPOCH = 5
+SERVE_RUN_BATCH = 64
+
+
+def _serve_err(label: str, got: dict, want: dict, tol) -> float:
+    """Largest difference of ``got`` from ``want`` over its keys, each held
+    to ``tol`` = (rtol, atol), the root's atol times 290."""
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: outputs {sorted(got)}, eager {sorted(want)}")
+    worst = 0.0
+    for k, w in want.items():
+        g, w = got[k].float().cpu().numpy(), w.float().cpu().numpy()
+        atol = tol[1] * (290.0 if k == "root" else 1.0)
+        np.testing.assert_allclose(g, w, rtol=tol[0], atol=atol, err_msg=f"{label} {k}")
+        worst = max(worst, float(np.abs(g - w).max()))
+    return worst
+
+
+def _packed_forward(model, data: dict) -> dict:
+    """The eval encoder's outputs (the packed head) and a train-mode
+    forward's (the packed sampler) from fixed noise, with deterministic
+    algorithms (the sampler's ``index_add`` is atomic otherwise); the
+    BatchNorm statistics restored after it."""
+    stats = {k: v.clone() for k, v in model.state_dict().items()}
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True)
+    try:
+        with torch.no_grad():
+            model.eval()
+            enc = model.encode(data)
+            model.train()
+            out = model(data, eps=torch.ones(data["x6d"].shape[0], model.vae.z_dim, device=data["x6d"].device))
+            model.eval()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    model.load_state_dict(stats)
+    return {**{f"eval_{k}": v for k, v in enc.items()}, **{k: out[k] for k in ("z", "x6d", "root")}}
+
+
+def _eager(model, data: dict, z: torch.Tensor, cond: dict) -> dict:
+    with torch.no_grad():
+        enc = model.encode(data)
+        return {"encoder": enc, "encoder_mu": {"mu": enc["mu"]}, "decoder": model.decode(z, dict(cond))}
+
+
+def _artifacts_vs_eager(label: str, fns: dict, model, shapes: dict, cond_shapes: dict, z_dim: int, tol,
+                        batches=SERVE_BATCHES) -> dict:
+    """Each artifact against the eager model at each batch size on random
+    inputs; returns the largest difference by artifact."""
+    from scrubvae_torch import serve_bench
+
+    rng = np.random.default_rng(7)
+    errs = {}
+    for n in batches:
+        data = serve_bench.poses(rng, n, shapes, DEVICE)
+        z = serve_bench.normals(rng, n, {"z": (z_dim,)}, DEVICE)["z"]
+        cond = serve_bench.normals(rng, n, cond_shapes, DEVICE)
+        want = _eager(model, data, z, cond)
+        with torch.no_grad():
+            got = {"encoder": fns["encoder"](data), "encoder_mu": fns["encoder_mu"](data),
+                   "decoder": fns["decoder"](z, cond)}
+        for a in got:
+            if any(v.shape[0] != n or v.device != data["x6d"].device for v in got[a].values()):
+                raise AssertionError(f"{label} {a} at batch {n}: {[(v.shape, v.device) for v in got[a].values()]}")
+            errs[a] = max(errs.get(a, 0.0), _serve_err(f"{label} {a} batch {n}", got[a], want[a], tol))
+    return errs
+
+
+def serve_flagship(card: str) -> dict:
+    """The flagship in f32 exported on the card, its artifacts against the
+    eager model, the mu-only size rule, the packed head after the exports,
+    an artifact exported on the CPU run on the card, and the serve lines."""
+    from scrubvae_torch import serve_bench
+    from scrubvae_torch.models import layers
+    from scrubvae_torch.utils.export import export_decoder, export_encoder, load_exported
+
+    model, ex, info = serve_bench.flagship(DEVICE)
+    cond_keys, z_dim = info["conditional_keys"], info["z_dim"]
+    shapes = {k: tuple(ex[k].shape[1:]) for k in ("x6d", "root")}
+    cond_shapes = {k: tuple(ex[k].shape[1:]) for k in cond_keys}
+    probe = {k: v.repeat(8, *[1] * (v.dim() - 1)) for k, v in ex.items()}
+    before = _packed_forward(model, probe)
+    # an exporting process starts with empty index caches: the trace fills
+    # them, as in `python -m scrubvae_torch.export_model`
+    layers._tril_tensors.cache_clear()
+    blobs, export_s = {}, {}
+    for a, fn in (
+        ("encoder", lambda: export_encoder(model, ex)),
+        ("encoder_mu", lambda: export_encoder(model, ex, mu_only=True)),
+        ("decoder", lambda: export_decoder(model, ex, z_dim, cond_keys)),
+    ):
+        blobs[a], export_s[a] = _timed(fn)
+    after = _packed_forward(model, probe)
+    changed = [k for k in before if type(after[k]) is not torch.Tensor or not bits_equal(after[k], before[k])]
+    if changed:
+        raise AssertionError(f"serve: the packed head's eager outputs changed after the exports: {changed}")
+    sigma_bytes = sum(p.numel() * p.element_size() for n, p in model.named_parameters() if "fc_sigma" in n)
+    shrink = len(blobs["encoder"]) - len(blobs["encoder_mu"])
+    if shrink < 0.9 * sigma_bytes:
+        raise AssertionError(f"serve: encoder_mu.pt2 only {shrink} bytes smaller; fc_sigma holds {sigma_bytes}")
+    fns, load_s = {}, {}
+    for a, blob in blobs.items():
+        fns[a], load_s[a] = _timed(load_exported, blob)
+    errs = _artifacts_vs_eager("flagship", fns, model, shapes, cond_shapes, z_dim, SERVE_TOL)
+
+    # exported on the CPU (the same weights: init_weights draws on the host),
+    # loaded onto the card
+    cpu_model, cpu_ex, _ = serve_bench.flagship("cpu")
+    (cpu_blob, cpu_export_s) = _timed(export_encoder, cpu_model, cpu_ex)
+    del cpu_model
+    moved, move_s = _timed(load_exported, cpu_blob, DEVICE)
+    moved_errs = _artifacts_vs_eager(
+        "cpu-exported encoder", {**fns, "encoder": moved}, model, shapes, cond_shapes, z_dim, SERVE_TOL,
+        batches=(64,),
+    )
+    lines = serve_bench.bench(
+        fns, shapes, cond_shapes, z_dim, SERVE_BATCHES, SERVE_ITERS, torch.device(DEVICE),
+    )
+    breakdown = _serve_breakdown(fns, model, shapes, cond_shapes, z_dim, lines)
+    dev = {(r["artifact"], r["batch"]): r["device_ms"] for r in breakdown}
+    mu_only = [
+        {"batch": n, "encoder_device_ms": dev[("encoder", n)], "encoder_mu_device_ms": dev[("encoder_mu", n)],
+         "saving_ms": dev[("encoder", n)] - dev[("encoder_mu", n)],
+         "saving_share": 1.0 - dev[("encoder_mu", n)] / dev[("encoder", n)]}
+        for n in SERVE_BATCHES
+    ]
+    rec = {
+        "card": card, "bytes": {a: len(b) for a, b in blobs.items()}, "fc_sigma_bytes": sigma_bytes,
+        "mu_only_shrink": shrink, "export_s": export_s, "load_s": load_s, "max_abs_err": errs,
+        "cpu_export_s": cpu_export_s, "cpu_to_card_load_s": move_s, "cpu_exported_err": moved_errs["encoder"],
+        "eager_unchanged_after_export": sorted(before), "breakdown": breakdown, "mu_only_on_device": mu_only,
+    }
+    log("serve flagship: " + json.dumps(rec))
+    return {**rec, "lines": lines}
+
+
+def _serve_breakdown(fns: dict, model, shapes: dict, cond_shapes: dict, z_dim: int, lines: list) -> list:
+    """For each artifact and batch: the device time of a call (every kernel
+    it launches, torch.profiler; the median of ``SERVE_DEVICE_SESSIONS``
+    sessions of 10 calls, and the least and most), the device's idle share
+    of the serve line's pipelined latency, and the eager model's pipelined
+    latency on the same inputs, with its spread."""
+    from scrubvae_torch import serve_bench
+
+    rng = np.random.default_rng(3)
+    latency = {(r["artifact"], r["batch"]): r["latency_ms"] for r in lines}
+    out = []
+    for n in SERVE_BATCHES:
+        data = serve_bench.poses(rng, n, shapes, DEVICE)
+        z = serve_bench.normals(rng, n, {"z": (z_dim,)}, DEVICE)["z"]
+        cond = serve_bench.normals(rng, n, cond_shapes, DEVICE)
+        calls = {
+            "encoder": (lambda: fns["encoder"](data), lambda: model.encode(data)),
+            "encoder_mu": (lambda: fns["encoder_mu"](data), lambda: model.encode(data, mu_only=True)),
+            "decoder": (lambda: fns["decoder"](z, cond), lambda: model.decode(z, dict(cond))),
+        }
+        for a, (artifact, eager) in calls.items():
+            with torch.no_grad():
+                dev = sorted(device_ms(artifact, iters=10) for _ in range(SERVE_DEVICE_SESSIONS))
+                st = serve_bench.time_call(eager, (), torch.device(DEVICE), SERVE_ITERS)
+            med = dev[len(dev) // 2]
+            out.append({
+                "artifact": a, "batch": n, "device_ms": med, "device_ms_min": dev[0], "device_ms_max": dev[-1],
+                "idle_share": 1.0 - med / latency[(a, n)], "eager_latency_ms": st["pipelined"] * 1e3,
+                "eager_latency_ms_min": st["pipelined_min"] * 1e3, "eager_latency_ms_max": st["pipelined_max"] * 1e3,
+            })
+    return out
+
+
+def serve_trained_run(card: str) -> dict:
+    """A run the port trained (a few flagship steps through ``Trainer``,
+    weights saved) through ``export_model``, ``serve_bench --run`` and
+    ``export_torch``, its reference ``.pth`` imported back bit for bit. The
+    card's machine has no ``h5py``: the split's pose file is a placeholder
+    and ``factory.read_pose_h5`` serves its arrays from memory."""
+    import yaml
+
+    from scrubvae_torch import bench, export_model, export_torch, factory, serve_bench
+    from scrubvae_torch.data.skeleton import load_skeleton
+    from scrubvae_torch.data.synthetic import synthetic_pose_stream
+    from scrubvae_torch.params import read
+    from scrubvae_torch.train.trainer import Trainer
+    from scrubvae_torch.utils import checkpoint as ckpt
+    from scrubvae_torch.utils.export import load_exported
+    from scrubvae_torch.utils.torch_import import import_torch_weights
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+    read_pose_h5 = factory.read_pose_h5
+    try:
+        data = tmp / "data"
+        (data / "synthetic" / "train").mkdir(parents=True)
+        (data / "synthetic" / "train" / "pose.h5").touch()
+        shutil.copy(ROOT / "configs" / "mouse_skeleton.yaml", data / "mouse_skeleton.yaml")
+        skel = load_skeleton(ROOT / "configs" / "mouse_skeleton.yaml")
+        arrays = synthetic_pose_stream(skel, n_frames=4 * 1200, n_ids=4, seed=0)
+        factory.read_pose_h5 = lambda path: arrays
+        run = tmp / "run"
+        cfg = bench.bench_config(512, 51, 128, bench.FULL_CH, True)
+        cfg["data"]["data_path"] = str(data) + "/"
+        run.mkdir()
+        (run / "model_config.yaml").write_text(yaml.safe_dump(dict(cfg, out_path="current")))
+        cfg = read.config(run / "model_config.yaml")
+        datasets, model, info = factory.data_and_model(
+            cfg, train_val_test=("train",), data_keys=bench.KEYS, device=DEVICE
+        )
+        trainer = Trainer(cfg, datasets, model, info, device=DEVICE)
+        rows = np.random.default_rng(0).integers(0, len(datasets["train"]), size=(SERVE_STEPS, 512))
+        _reset_launches()
+        torch.cuda.synchronize()
+        metrics, train_s = _timed(trainer.train_epoch, 1, rows)
+        launches = _launches()
+        per_step = len(trainer.state.opt_state.table.batches)
+        if not math.isfinite(metrics["total"]) or launches != per_step * SERVE_STEPS:
+            raise AssertionError(f"serve run: total {metrics['total']}, {launches} launches in {SERVE_STEPS} steps")
+        ckpt.save_weights(cfg["out_path"], SERVE_EPOCH, model)
+
+        _reset_launches()
+        out_dir, export_s = _timed(export_model.main, ["--run", str(run), "--device", DEVICE])
+        factory.read_pose_h5 = read_pose_h5
+        meta = json.loads((out_dir / "meta.json").read_text())
+        fns = {a: load_exported(out_dir / f"{a}.pt2", DEVICE) for a in ("encoder", "encoder_mu", "decoder")}
+        model.eval()
+        errs = _artifacts_vs_eager(
+            "trained run", fns, model, meta["input_shapes"], meta["conditional_shapes"], meta["z_dim"],
+            SERVE_TOL, batches=(SERVE_RUN_BATCH,),
+        )
+        lines = serve_bench.main([
+            "--run", str(run), "--batches", *map(str, SERVE_BATCHES), "--iters", str(SERVE_ITERS),
+            "--device", DEVICE,
+        ])
+        serving_launches = _launches()
+        if serving_launches:
+            raise AssertionError(f"serve: {serving_launches} optimizer launches while exporting and serving")
+
+        pth, pth_s = _timed(export_torch.main, ["--run", str(run), "--epoch", str(SERVE_EPOCH)])
+        fresh, _ = factory.build_model(
+            cfg["model"], cfg["disentangle"], n_keypts=18, direction_process="midfwd", arena_size=bench.ARENA,
+            discrete_classes=datasets["train"].discrete_classes, loss_keys=cfg["loss"].keys(), device=DEVICE,
+        )
+        report = import_torch_weights(pth, fresh)
+        if report != ([], []):
+            raise AssertionError(f"serve: the reference .pth round trip left {report}")
+        trained = model.state_dict()
+        diff = [
+            k for k, v in fresh.state_dict().items()
+            if (int(v) != 0 if k.endswith("num_batches_tracked") else not bits_equal(v, trained[k].float()))
+        ]
+        if diff:
+            raise AssertionError(f"serve: the reference .pth round trip changed {diff[:8]}")
+        rec = {
+            "card": card, "steps": SERVE_STEPS, "train_s": train_s, "optimizer_launches": launches,
+            "launches_per_step": launches / SERVE_STEPS, "serving_launches": serving_launches,
+            "export_model_s": export_s, "max_abs_err": errs, "pth_s": pth_s,
+            "pth_bytes": pathlib.Path(pth).stat().st_size, "meta": meta,
+            "bf16_leaves": sum(p.dtype == torch.bfloat16 for p in model.parameters()),
+        }
+        log("serve trained run: " + json.dumps(rec))
+        return {**rec, "lines": lines}
+    finally:
+        factory.read_pose_h5 = read_pose_h5
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def serve_phase(card: str) -> dict:
+    """The serving path (see the module docstring)."""
+    t0 = time.perf_counter()
+    flagship = serve_flagship(card)
+    torch.cuda.empty_cache()
+    run = serve_trained_run(card)
+    rec = {"flagship": flagship, "trained_run": run, "phase_s": time.perf_counter() - t0}
+    log(f"serve phase: {rec['phase_s']:.1f} s")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
 
 def kernels_line(kernel: dict, path: dict, fit: dict, full: dict, bench: dict, x360: dict, models: dict,
-                 surface: dict = None) -> dict:
+                 surface: dict = None, serve: dict = None) -> dict:
     """One record per kernel of the main path: its launches on the path run
     and, at the fc_sigma shape, its time beside the plain version's, the
     bound and the library call's, for the f32 variant (where
@@ -3207,8 +3528,9 @@ def kernels_line(kernel: dict, path: dict, fit: dict, full: dict, bench: dict, x
     and ``torch._fused_adamw_``'s time; and the launches of the bench's run
     and of each x360, models and surface training run with its leaf tables'
     agreement with the plain version (the surface's sgd and unfused Adam
-    runs launch it 0 times). ``max_abs_err`` is the largest of every
-    check's."""
+    runs launch it 0 times), and of the serve phase's training steps and
+    its serving (0: exporting and serving train nothing). ``max_abs_err``
+    is the largest of every check's."""
     errs = [kernel["max_abs_err"]]
     errs += [] if full is None else [full["inner_adamw"]["max_abs_err"]]
     errs += [] if x360 is None else [r["kernel_max_abs_err"] for r in x360["runs"].values()]
@@ -3272,6 +3594,8 @@ def kernels_line(kernel: dict, path: dict, fit: dict, full: dict, bench: dict, x
         "models_launches_per_step": None if models is None else {k: r["launches_per_step"] for k, r in models["runs"].items()},
         "models_max_abs_err": None if models is None else {k: r["kernel_max_abs_err"] for k, r in models["runs"].items()},
         "surface_launches_per_step": {k: r["launches_per_step"] for k, r in surface_runs.items()} or None,
+        "serve_train_launches_per_step": None if serve is None else serve["trained_run"]["launches_per_step"],
+        "serve_serving_launches": None if serve is None else serve["trained_run"]["serving_launches"],
         "surface_leaf_sets": {
             k: {f: c[f] for f in LEAF_SET_KEYS + ("max_abs_err", "bytes")} for k, c in surface_sets.items()
         } or None,
@@ -3349,10 +3673,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         if "analysis" in phases:
             analysis_phase(card, analysis_tmp)
+        torch.cuda.empty_cache()
+        serve = serve_phase(card) if "serve" in phases else None
     finally:
         shutil.rmtree(analysis_tmp, ignore_errors=True)
     if kernel is not None and path is not None:
-        log(json.dumps(kernels_line(kernel, path, fit, full, bench, x360, models, surface)))
+        log(json.dumps(kernels_line(kernel, path, fit, full, bench, x360, models, surface, serve)))
     log(smi[0] if smi else "nvidia-smi: no output")
     print(json.dumps({
         "ok": True,

@@ -19,7 +19,6 @@ argument; the callers draw it from a ``torch.Generator``.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import itertools
 import math
 from typing import Optional, Sequence
@@ -28,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from scrubvae_torch.models.layers import Linear, lecun_normal_
+from scrubvae_torch.models.layers import Linear, lecun_normal_, trace_safe_cache
 from scrubvae_torch.ops.smallsolve import spd_slogdet, spd_solve
 
 __all__ = [
@@ -132,7 +131,7 @@ class GRScrubber(nn.Module):
         return self.ensemble(grad_reverse(z, self.alpha))
 
 
-@functools.lru_cache(maxsize=None)
+@trace_safe_cache
 def polynomial_indices(nx: int, order: int) -> tuple:
     """The index combinations (with replacement) of each degree 2..order,
     one (n_combos, degree) array per degree."""
@@ -142,7 +141,7 @@ def polynomial_indices(nx: int, order: int) -> tuple:
     )
 
 
-@functools.lru_cache(maxsize=None)
+@trace_safe_cache
 def _polynomial_indices_on(nx: int, order: int, device: torch.device) -> tuple:
     return tuple(idx.to(device) for idx in polynomial_indices(nx, order))
 

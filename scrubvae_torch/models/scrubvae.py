@@ -33,6 +33,12 @@ class ScrubVAE(nn.Module):
             {k: GRScrubber(z, d, alpha=gr_alpha) for k, d in self.gr_dims.items()}
         )
 
+    def encode(self, data: Dict[str, torch.Tensor], mu_only: bool = False) -> Dict[str, torch.Tensor]:
+        return self.vae.encode(data, mu_only=mu_only)
+
+    def decode(self, z: torch.Tensor, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return self.vae.decode(z, data)
+
     def forward(
         self,
         data: Dict[str, torch.Tensor],

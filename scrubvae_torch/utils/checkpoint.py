@@ -27,7 +27,6 @@ step after one moved.
 from __future__ import annotations
 
 import dataclasses
-import re
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -42,7 +41,7 @@ __all__ = [
     "load_weights",
     "save_train_state",
     "load_train_state",
-    "reference_to_port",
+    "copy_into",
 ]
 
 
@@ -51,7 +50,7 @@ def _cpu_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
 
 
 @torch.no_grad()
-def _copy_into(model: nn.Module, sd: Dict[str, torch.Tensor], strict: bool = True) -> list:
+def copy_into(model: nn.Module, sd: Dict[str, torch.Tensor], strict: bool = True) -> list:
     """Copy ``sd`` into the model's parameters and buffers in place; returns
     the model's keys that ``sd`` did not fill (an error when ``strict``)."""
     own = model.state_dict(keep_vars=True)
@@ -76,60 +75,22 @@ def save_weights(out_path: str, epoch: int, model: nn.Module) -> str:
     return str(path)
 
 
-def reference_to_port(sd: Dict[str, torch.Tensor], port_keys) -> tuple:
-    """Rename a reference-layout state dict (the reference torch model's
-    ``model.state_dict()``, as ``scrubvae_tpu/utils/torch_export.py``
-    writes it) to the port's names. The port's modules carry the reference's
-    layouts, so only names change: the VAE's keys take the scope under
-    which the port's encoder entry conv lives (``vae.``), the linear
-    projection's ``disentangle.linear.{k}.decoder.weight`` becomes
-    ``linear.{k}.weight``, and the gradient-reversal ensembles'
-    ``disentangle.grad_reversal.{k}.reversal.1.mlpN.{2j}`` become
-    ``grad_reversal.{k}.ensemble.mlpN_{j}``. Returns (renamed, the
-    reference keys with no port counterpart)."""
-    # The port nests the VAE under an enclosing scope; detect the prefix
-    # from wherever the encoder entry conv actually lives.
-    scope = ""
-    for k in port_keys:
-        m = re.match(r"(.*?)encoder\.conv_in\.weight$", k)
-        if m:
-            scope = m.group(1)
-            break
-    out, unmapped = {}, []
-    for k, v in sd.items():
-        if k.startswith(("encoder.", "decoder.")):
-            out[scope + k] = v
-        elif m := re.fullmatch(r"disentangle\.linear\.([^.]+)\.decoder\.weight", k):
-            out[f"linear.{m.group(1)}.weight"] = v
-        elif m := re.fullmatch(
-            r"disentangle\.grad_reversal\.([^.]+)\.reversal\.1\.(mlp\d)\.(\d+)\.(weight|bias)", k
-        ):
-            feat, mlp, idx, wb = m.groups()
-            out[f"grad_reversal.{feat}.ensemble.{mlp}_{int(idx) // 2}.{wb}"] = v
-        else:
-            unmapped.append(k)
-    return out, sorted(unmapped)
-
-
 def load_weights(load_path: str, epoch: int, model: nn.Module) -> None:
     """Load ``weights/epoch_E.pt`` into ``model`` in place, falling back to
-    ``weights/epoch_E.pth``, a reference-trained torch checkpoint (loaded
-    like the reference's ``strict=False``: mismatches are printed, never
-    fatal), so a config's ``model.load_model`` can point at a reference run
-    directly."""
+    ``weights/epoch_E.pth``, a reference-trained torch checkpoint, through
+    ``utils.torch_import.import_torch_weights`` (``strict=False`` as in the
+    reference: mismatches are printed, never fatal), so a config's
+    ``model.load_model`` can point at a reference run directly."""
     path = Path(load_path) / "weights" / f"epoch_{epoch}.pt"
     if not path.exists():
         pth = path.with_suffix(".pth")
         if pth.exists():
-            sd = torch.load(pth, map_location="cpu", weights_only=True)
-            renamed, unmapped = reference_to_port(sd, model.state_dict().keys())
-            unfilled = _copy_into(model, renamed, strict=False)
-            if unmapped:
-                print(f"load_weights: {len(unmapped)} reference keys not mapped: {unmapped[:8]}")
-            if unfilled:
-                print(f"load_weights: {len(unfilled)} port leaves left as they were: {unfilled[:8]}")
+            # imported here: torch_import imports copy_into from this module
+            from scrubvae_torch.utils.torch_import import import_torch_weights
+
+            import_torch_weights(pth, model)
             return
-    _copy_into(model, torch.load(path, map_location="cpu", weights_only=True))
+    copy_into(model, torch.load(path, map_location="cpu", weights_only=True))
 
 
 def _tensor_fields(st) -> dict:
@@ -229,14 +190,14 @@ def load_train_state(
     if not path.exists():
         return None
     ck = torch.load(path, map_location="cpu", weights_only=True)
-    _copy_into(model, ck["model"])
+    copy_into(model, ck["model"])
     scrub = {
         method: {feat: _with_tensors(st, ck["scrub"][method][feat]) for feat, st in states.items()}
         for method, states in state.scrub_state.items()
     }
     adv = {}
     for feat, st in state.adv_states.items():
-        _copy_into(st.net, ck["adv"][feat]["net"])
+        copy_into(st.net, ck["adv"][feat]["net"])
         adv[feat] = dataclasses.replace(st, opt_state=_restore_opt(st.opt_state, ck["adv"][feat]["opt"]))
     mi = state.mi_state
     if mi is not None:

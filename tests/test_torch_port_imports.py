@@ -23,6 +23,7 @@ def test_importing_every_module_pulls_in_no_jax():
         "evals.latents", "bench", "models.base", "models.mlp_vae", "models.transformer",
         "data.hoststream", "preprocess_data", "evals.cluster", "evals.traverse", "plot", "plot.plot",
         "plot.eval", "plot.pose_viz", "plot.constants", "utils.profiling", "models.mi",
+        "utils.export", "utils.torch_export", "utils.torch_import", "export_model", "serve_bench", "export_torch",
     ):
         assert "scrubvae_torch." + m in mods, m
     code = (
@@ -164,6 +165,19 @@ def test_bench_needs_a_gpu_unless_cpu_is_asked_for(monkeypatch):
         bench.run(bench.parse_args(small))
     out = bench.run(bench.parse_args(small + ["--device", "cpu"]))
     assert out["device_kind"] == "cpu" and np.isfinite(out["total"])
+
+
+def test_serving_needs_a_gpu_unless_cpu_is_asked_for(monkeypatch):
+    """``serve_bench`` and ``load_exported`` run on the card by default
+    and raise without one before building anything."""
+    from scrubvae_torch import serve_bench
+    from scrubvae_torch.utils.export import load_exported
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_bench.main(["--flagship", "--batches", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_exported(b"", "cuda")
 
 
 def test_bare_cuda_resolves_to_the_current_device_index(monkeypatch):
