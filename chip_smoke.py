@@ -4,7 +4,13 @@ Run from the root of the repository:
 
     python3 chip_smoke.py
 
-Phases (each one fails the run on error; nothing is caught and swallowed):
+Phases (each one fails the run on error; nothing is caught and swallowed).
+Every phase that trains through ``Trainer.train_epoch`` or
+``Trainer.test_epoch`` runs those epochs as CUDA graphs (the port's
+``train.scan_epoch``, unset means on; ``scrubvae_torch.train.graph``); a
+kernel wrapper's ``launches`` counts the launches a graph recorded once at
+each replay, so the launch checks below read the same counts as eager
+steps would give them (the graph phase holds the two equal).
 
 1. card: print the GPU's name and power limit (nvidia-smi); TF32 off.
 2. build: compile every hand-written kernel from ``scrubvae_torch/csrc``.
@@ -29,7 +35,11 @@ Phases (each one fails the run on error; nothing is caught and swallowed):
    bytes it must move.
 6. profile, only when asked for (``--phases kernel,parity,path,profile``):
    device time by kernel over 5 flagship steps, and the device's idle share
-   (torch.profiler; the table goes to ``build/profile_path.txt``).
+   (torch.profiler; the table goes to ``build/profile_path.txt``); then
+   ``python -m scrubvae_torch.profile_step``'s line, eagerly and in a
+   graph (20 steps each), for the flagship, ``configs/ladder/5_full.yaml``,
+   ``configs/sane/4_full.yaml`` and the flagship's config with the
+   transformer.
 7. fit: the training entry point at full flagship width. A YAML config
    (the path phase's flagship, epochs 11 to 20 from ``model.start_epoch``
    10 with nothing loaded, validation from epoch 0, without
@@ -276,6 +286,32 @@ Phases (each one fails the run on error; nothing is caught and swallowed):
    per rank beside the card's name: ranks sharing one card over gloo, not a
    scaling number.
 
+16. graph: ``train.scan_epoch``'s CUDA graphs
+   (``scrubvae_torch.train.graph``), with deterministic algorithms. The
+   flagship at full width (the bench's config, batch 512, bf16) trains an
+   epoch of 20 steps, a validation epoch (5652 windows: 11 full batches and
+   a tail), an epoch of 4 steps and a second validation epoch (which
+   replays the validation graph kept from the first after reseeding its
+   generator) as graphs and eagerly (``scan_epoch: false``, the same
+   in-place step from the host): the epoch metrics, the validation mu, the
+   parameters, moments, BatchNorm statistics, MALS state, step counts and
+   generators bit for bit alike, and the same kernel launches (2 a step; a
+   graph's counted from its replays). ``configs/ladder/5_full.yaml`` at its
+   full width likewise over an epoch, the validation epoch (whose MCMI
+   refresh moves the estimator, so the train step is captured again) and
+   another epoch (2 outer and 5 inner launches a step); then sgd, the
+   unfused Adam, the beta prior, the transformer (dropout) at the bench's
+   small widths and ``configs/sane/4_full.yaml`` (x360) at its own, each
+   over two epochs, each followed by a validation epoch. Then the kernel
+   captured in a graph with its step word over a table of the flagship's
+   leaves (random values) and replayed 3 times, bitwise equal to the plain
+   version at steps 1 to 3, and its replayed pass timed beside the eager
+   call. Then ``python -m scrubvae_torch.profile_step``'s line of the
+   flagship eagerly and in a graph (20 steps) and the bench's step time and
+   rate both ways (20 steps), with each epoch's seconds and the peak memory
+   of both runs above (over what was allocated when each run began), beside
+   the card's name.
+
 Prints one JSON line describing the kernels, the card's name and power limit
 again, then, as its last line, the device record. Needs one CUDA GPU and
 ``nvcc``; exits non-zero without them.
@@ -303,7 +339,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
 ADAMW_FLOPS_PER_ELEM = 20
 ROOT = pathlib.Path(__file__).resolve().parent
-PHASES = ("kernel", "parity", "path", "fit", "full", "bench", "x360", "models", "surface", "analysis", "serve", "mesh")
+PHASES = (
+    "kernel", "parity", "path", "fit", "full", "bench", "x360", "models", "surface", "analysis", "serve", "mesh", "graph",
+)
 DEVICE = "cuda"
 
 
@@ -773,6 +811,42 @@ def profile_phase(trainer, rows, loss_scale, steps: int = 5) -> None:
         "kernel_launches_per_step": sum(e.count for e in events) / steps,
         "top_kernels": top,
     }))
+
+
+PROFILE_CONFIGS = ("flagship", "ladder/5_full", "sane/4_full", "transformer")
+
+
+def profile_configs(steps: int = 20) -> dict:
+    """``python -m scrubvae_torch.profile_step``'s line, eagerly
+    (``--per-step``) and in a graph, for the flagship, ``configs/ladder/5_full.yaml``
+    and ``configs/sane/4_full.yaml`` at their own widths and the flagship's
+    config with the transformer (``TRANSFORMER``), each beside the others
+    in this one call."""
+    import yaml
+
+    from scrubvae_torch import bench, profile_step
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_profile_"))
+    out = {}
+    try:
+        for name in PROFILE_CONFIGS:
+            args = ["--steps", str(steps)]
+            if name == "transformer":
+                cfg = bench.bench_config(512, 51, 128, bench.FULL_CH, True)
+                cfg["model"].update(TRANSFORMER)
+                path = tmp / "transformer.yaml"
+                path.write_text(yaml.safe_dump(cfg))
+                args += ["--config", str(path)]
+            elif name != "flagship":
+                args += ["--config", str(ROOT / "configs" / f"{name}.yaml")]
+            for label, flags in (("eager", ["--per-step"]), ("graph", [])):
+                rec = profile_step.run(profile_step.parse_args(args + flags))
+                out[f"{name} {label}"] = rec
+                log(f"profile_step {name} {label}: " + json.dumps(rec))
+                torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3973,8 +4047,245 @@ def mesh_phase(card: str, dims: dict = MESH_DIMS) -> dict:
             torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the train and validation epochs as CUDA graphs
+# ---------------------------------------------------------------------------
+
+GRAPH_STEPS = (20, 4)  # the flagship's two graph epochs against its eager epochs
+GRAPH_VAL_FRAMES = 11500  # 4 ids: 5652 windows, 11 full batches of 512 and a tail
+GRAPH_FULL_VAL_FRAMES = 2600  # 4 ids: 1200 windows, 2 full batches of 512 and a tail
+GRAPH_SMALL_VAL_FRAMES = 400  # 4 ids: 100 windows, 6 full batches of 16 and a tail
+GRAPH_FULL_ROWS = (6, 6)  # 5_full's two epochs, an MCMI refresh between them
+GRAPH_SMALL_ROWS = (4, 3)  # the small paths' two epochs, each followed by a validation epoch
+GRAPH_SMALL = {  # the small paths: label -> (config, model, train overrides, build kwargs)
+    "sgd": (None, {}, {"optimizer": "sgd", "clip_norm": 1}, {}),
+    "unfused_adam": (None, {}, {"fused_optimizer": False}, {}),
+    "beta_prior": (None, {"prior": "beta"}, {}, {}),
+    "transformer": (None, {"type": "transformer", "z_dim": 16, "window": 51, "diag": False}, {}, {}),
+    "sane_4_full": ("sane/4_full", {}, {}, {"small": False, "val_frames": 2 * GRAPH_SMALL_VAL_FRAMES}),
+}
+GRAPH_KERNEL_REPLAYS = 3
+
+
+def _graph_trainer(run: pathlib.Path, scan: bool, config: str = None, model: dict = None, small: bool = True,
+                   val_frames: int = GRAPH_SMALL_VAL_FRAMES, **train):
+    """A trainer on ``profile_step.build_from_config``'s synthetic splits
+    (train and a validation split of ``val_frames`` frames) from a config
+    file: ``configs/{config}.yaml``, or the bench's flagship, with
+    ``model`` and ``train`` entries overridden, at the bench's small
+    widths with ``small``; ``train.scan_epoch`` = ``scan``."""
+    from scrubvae_torch import bench, profile_step
+
+    if config is None:
+        cfg = bench.bench_config(512, 51, 128, bench.FULL_CH, True)
+    else:
+        import yaml
+
+        cfg = yaml.safe_load((ROOT / "configs" / f"{config}.yaml").read_text())
+    cfg["model"].update(model or {})
+    cfg["train"].update(train)
+    cfg = _write_config(run / f"{'graph' if scan else 'eager'}", cfg)
+    return profile_step.build_from_config(
+        pathlib.Path(cfg["out_path"]) / "model_config.yaml", DEVICE, small=small, scan_epoch=scan,
+        val_frames=val_frames,
+    )
+
+
+def _graph_run(trainer, ds, schedule) -> dict:
+    """``schedule``'s epochs through ``trainer``: ("train", epoch, steps)
+    on rows drawn from a fixed numpy seed, ("val", epoch); each epoch's
+    metrics and host time, the validation mu, the whole trainer state
+    after (the validation generator's state with the others), the kernel
+    launches, and the peak memory above what was allocated when the
+    schedule began (so not counting what earlier phases still hold)."""
+    rng = np.random.default_rng(7)
+    out = {"metrics": [], "seconds": [], "mu": []}
+    _reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out["start_mem_gib"] = torch.cuda.memory_allocated() / 2**30
+    for kind, epoch, *steps in schedule:
+        t0 = time.perf_counter()
+        if kind == "train":
+            rows = rng.integers(0, len(ds), (steps[0], trainer.batch_size))
+            out["metrics"].append(trainer.train_epoch(epoch, rows))
+        else:
+            m, z = trainer.test_epoch(epoch)
+            out["metrics"].append(m)
+            out["mu"].append(torch.from_numpy(z))
+        torch.cuda.synchronize()
+        out["seconds"].append(time.perf_counter() - t0)
+    out["state"] = _trainer_state(trainer)
+    out["state"]["generator"].append(trainer._eval_gen.get_state().clone())
+    out["launches"] = _launches()
+    out["steps"] = trainer.state.step
+    out["captures"] = trainer.graph_captures
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30 - out["start_mem_gib"]
+    return out
+
+
+def _graph_compare(label: str, run: pathlib.Path, schedule, **build) -> dict:
+    """The same epochs eagerly (``scan_epoch: false``) and as graphs, with
+    deterministic algorithms: metrics, validation mu and state bit for bit,
+    the same kernel launches (the graph's counted from its replays)."""
+    runs = {}
+    for scan in (False, True):
+        trainer, ds = _graph_trainer(run / label, scan, **build)
+        if trainer.use_graphs != scan:
+            raise AssertionError(f"graph {label}: scan_epoch {scan} but use_graphs {trainer.use_graphs}")
+        runs[scan] = _graph_run(trainer, ds, schedule)
+        trainer.release_graphs()
+        del trainer, ds
+        torch.cuda.empty_cache()
+    eager, graph = runs[False], runs[True]
+    bad = _same_state(eager["state"], graph["state"])
+    if eager["metrics"] != graph["metrics"]:
+        bad.append("metrics")
+    if not all(bits_equal(a, b) for a, b in zip(eager["mu"], graph["mu"])):
+        bad.append("validation mu")
+    if (eager["launches"], eager["steps"]) != (graph["launches"], graph["steps"]):
+        bad.append(f"launches/steps {eager['launches']}/{eager['steps']} vs {graph['launches']}/{graph['steps']}")
+    if bad:
+        raise AssertionError(f"graph {label}: the graph epochs differ from the eager ones in {bad}")
+    rec = {
+        "bitwise_equal": True, "launches": graph["launches"], "steps": graph["steps"],
+        "launches_per_step": graph["launches"] / max(graph["steps"], 1), "captures": graph["captures"],
+        "epoch_seconds_eager": eager["seconds"], "epoch_seconds_graph": graph["seconds"],
+        "peak_mem_gib_eager": eager["peak_mem_gib"], "peak_mem_gib_graph": graph["peak_mem_gib"],
+        "start_mem_gib": [eager["start_mem_gib"], graph["start_mem_gib"]],
+        "total_train": [m.get("total") for m in graph["metrics"]],
+    }
+    log(f"graph {label}, graph against eager: " + json.dumps(rec))
+    return rec
+
+
+def graph_kernel_check(params, moments, label: str) -> dict:
+    """The kernel captured in a CUDA graph with its step word (one
+    ``count.add_(1)`` and one ``fused_adamw_multi`` over a table of
+    ``params``' shapes and dtypes and ``moments``' dtypes, random values)
+    and replayed ``GRAPH_KERNEL_REPLAYS`` times: after replay t, every leaf
+    bitwise equal to the plain version at step t from the leaves before
+    it. Then the replayed pass's time (CUDA events around 20 replays) and
+    device time beside the eager call's."""
+    from scrubvae_torch.ops import fused_adamw as fa
+
+    scal, hyper, _ = _outer_hyper()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def randn(like, scale, dtype):
+        return (torch.randn(like.shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    gs = [randn(p, 1e-2, p.dtype) for p in params]
+    table = fa.LeafTable([randn(p, 0.05, p.dtype) for p in params], [randn(m, 1e-3, m.dtype) for m in moments],
+                         [(randn(m, 1e-2, torch.float32) ** 2).to(m.dtype) for m in moments])
+    count = torch.zeros((), dtype=torch.int32, device="cuda")
+    seed = 17
+
+    def step():
+        count.add_(1)
+        fa.fused_adamw_multi(table, gs, scal, seed=seed, step=count, **hyper)
+
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    lr, b1c, b2c, gscale = scal.unbind(0)
+    err = 0.0
+    for t in range(1, GRAPH_KERNEL_REPLAYS + 1):
+        before = [[x.clone() for x in xs] for xs in (table.w, table.mu, table.nu)]
+        graph.replay()
+        refs = fa.fused_adamw_multi_reference(
+            *before[:1], gs, *before[1:], lr=lr, b1c=b1c, b2c=b2c, gscale=gscale, seed=seed, step=t, **hyper
+        )
+        torch.cuda.synchronize()
+        if int(count) != t:
+            raise AssertionError(f"graph kernel {label}: the step word reads {int(count)} after replay {t}")
+        for i, ref in enumerate(refs):
+            err = max(err, _assert_bits(f"replay {t} leaf {i} of the {label} set", (table.w[i], table.mu[i], table.nu[i]), ref))
+        del before, refs
+    rec = {
+        "leaves": len(params), "elements": sum(table.numel), "replays_bitwise": GRAPH_KERNEL_REPLAYS,
+        "max_abs_err": err,
+        "graph_pass_ms": cuda_ms(graph.replay),
+        "graph_pass_device_ms": device_ms(graph.replay),
+        "eager_pass_ms": cuda_ms(step),
+    }
+    log(f"graph kernel fused_adamw {label} set replayed: " + json.dumps(rec))
+    del graph, table, gs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def graph_readings() -> dict:
+    """``profile_step``'s line of the flagship eager and in a graph, and
+    the bench's step time and rate both ways (20 timed steps)."""
+    from scrubvae_torch import bench, profile_step
+
+    out = {}
+    for label, flags in (("eager", ["--per-step"]), ("graph", [])):
+        rec = profile_step.run(profile_step.parse_args(["--steps", "20", *flags]))
+        out[f"profile_{label}"] = rec
+        log(f"graph profile_step flagship {label}: " + json.dumps(rec))
+        torch.cuda.empty_cache()
+        b = bench.run(bench.parse_args(["--steps", "20", "--warmup", "3", *flags]))
+        out[f"bench_{label}"] = b
+        log(f"graph bench {label}: " + json.dumps(b))
+        torch.cuda.empty_cache()
+    return out
+
+
+def graph_phase(card: str) -> dict:
+    """The train and validation epochs as CUDA graphs against the eager
+    epochs, bit for bit under deterministic algorithms; the kernel
+    replayed in a graph against its plain version; the readings."""
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_graph_"))
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        flagship = _graph_compare(
+            "flagship", tmp, [("train", 1, GRAPH_STEPS[0]), ("val", 1), ("train", 2, GRAPH_STEPS[1]), ("val", 2)],
+            small=False, val_frames=GRAPH_VAL_FRAMES,
+        )
+        full = _graph_compare(
+            "5_full", tmp, [("train", 1, GRAPH_FULL_ROWS[0]), ("val", 1), ("train", 2, GRAPH_FULL_ROWS[1])],
+            config="ladder/5_full", small=False, val_frames=GRAPH_FULL_VAL_FRAMES,
+        )
+        if full["captures"] < 3:
+            raise AssertionError(f"graph 5_full: {full['captures']} captures; the MCMI refresh must recapture")
+        small = {
+            label: _graph_compare(
+                label, tmp,
+                [("train", 1, GRAPH_SMALL_ROWS[0]), ("val", 1), ("train", 2, GRAPH_SMALL_ROWS[1]), ("val", 2)],
+                config=config, model=model, **train, **build,
+            )
+            for label, (config, model, train, build) in GRAPH_SMALL.items()
+        }
+        compare_s = time.perf_counter() - t0
+        from scrubvae_torch import bench
+
+        trainer, _ = bench.build(512, 51, 128, bench.FULL_CH, DEVICE)
+        kernel = graph_kernel_check(list(trainer.model.parameters()), trainer.state.opt_state.mu, "flagship")
+        del trainer
+        torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(tmp, ignore_errors=True)
+    readings = graph_readings()
+    rec = {"flagship": flagship, "5_full": full, "small": small, "kernel": kernel, "readings": readings,
+           "compare_seconds": compare_s}
+    log(f"graph phase ({card}): " + json.dumps({
+        "compare_seconds": compare_s,
+        "flagship_val_seconds_eager": flagship["epoch_seconds_eager"][1::2],
+        "flagship_val_seconds_graph": flagship["epoch_seconds_graph"][1::2],
+        "flagship_peak_mem_gib_above_start": [flagship["peak_mem_gib_eager"], flagship["peak_mem_gib_graph"]],
+        "flagship_start_mem_gib": flagship["start_mem_gib"],
+    }))
+    return rec
+
+
 def kernels_line(kernel: dict, path: dict, fit: dict, full: dict, bench: dict, x360: dict, models: dict,
-                 surface: dict = None, serve: dict = None, mesh: dict = None) -> dict:
+                 surface: dict = None, serve: dict = None, mesh: dict = None, graph: dict = None) -> dict:
     """One record per kernel of the main path: its launches on the path run
     and, at the fc_sigma shape, its time beside the plain version's, the
     bound and the library call's, for the f32 variant (where
@@ -3992,8 +4303,10 @@ def kernels_line(kernel: dict, path: dict, fit: dict, full: dict, bench: dict, x
     phase's launches a step on each rank of each mesh and the shard launch
     path (each model rank's slice of ``fc_sigma`` at its element offset):
     its time beside its bound, the plain version's and
-    ``torch._fused_adamw_``'s. ``max_abs_err`` is the largest of every
-    check's."""
+    ``torch._fused_adamw_``'s; and the graph phase's launches a step of the
+    graph epochs (counted from the replays) and the kernel replayed in a
+    graph (bitwise at steps 1 to 3, its replayed pass's time beside the
+    eager call's). ``max_abs_err`` is the largest of every check's."""
     errs = [kernel["max_abs_err"]]
     errs += [] if full is None else [full["inner_adamw"]["max_abs_err"]]
     errs += [] if x360 is None else [r["kernel_max_abs_err"] for r in x360["runs"].values()]
@@ -4014,6 +4327,7 @@ def kernels_line(kernel: dict, path: dict, fit: dict, full: dict, bench: dict, x
         errs += [c["max_abs_err"] for c in surface_sets.values()]
     shards = [] if mesh is None else [sh for m in mesh["meshes"].values() for sh in m["shards"]]
     errs += [sh["max_abs_err"] for sh in shards]
+    errs += [] if graph is None else [graph["kernel"]["max_abs_err"]]
     f32 = kernel["timings"]["w f32, m f32"]
     bf16 = kernel["timings"]["w bf16, m bf16"]
     leaf_set = kernel["leaf_set"]
@@ -4072,6 +4386,10 @@ def kernels_line(kernel: dict, path: dict, fit: dict, full: dict, bench: dict, x
                                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "bytes")}
             for sh in mesh["meshes"]["model2"]["shards"]
         ],
+        "graph_launches_per_step": None if graph is None else {
+            k: graph[k]["launches_per_step"] for k in ("flagship", "5_full")
+        },
+        "graph_replay": None if graph is None else graph["kernel"],
         "inner_pass": None if full is None else {
             k: full["inner_adamw"][k]
             for k in (
@@ -4129,6 +4447,8 @@ def main() -> int:
             profile_phase(flagship[0], rows, loss_scale)
     flagship = None  # frees the path phase's trainer before the fit phase
     torch.cuda.empty_cache()
+    if "profile" in phases:
+        profile_configs()
     card = smi[0] if smi else "nvidia-smi: no output"
     analysis_tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_analysis_"))
     try:
@@ -4150,10 +4470,12 @@ def main() -> int:
         serve = serve_phase(card) if "serve" in phases else None
         torch.cuda.empty_cache()
         mesh = mesh_phase(card) if "mesh" in phases else None
+        torch.cuda.empty_cache()
+        graph = graph_phase(card) if "graph" in phases else None
     finally:
         shutil.rmtree(analysis_tmp, ignore_errors=True)
     if kernel is not None and path is not None:
-        log(json.dumps(kernels_line(kernel, path, fit, full, bench, x360, models, surface, serve, mesh)))
+        log(json.dumps(kernels_line(kernel, path, fit, full, bench, x360, models, surface, serve, mesh, graph)))
     log(smi[0] if smi else "nvidia-smi: no output")
     print(json.dumps({
         "ok": True,

@@ -2,7 +2,7 @@
 
     python -m scrubvae_torch.bench [--batch 512] [--steps 100] [--warmup 5]
                                    [--small] [--f32-params] [--no-fused]
-                                   [--sigma-rank N] [--host-stream]
+                                   [--sigma-rank N] [--host-stream] [--per-step]
                                    [--device cuda] [--mesh JSON] [--backend nccl]
 
 The configuration is the flagship of the JAX package's bench: the rcnn
@@ -21,21 +21,28 @@ kernel's stochastically rounded weight stores, so it needs
 without the fused optimizer. ``--sigma-rank N`` factors ``fc_sigma`` at
 rank N (``model.sigma_head_rank``). ``--host-stream`` keeps the frame
 store in host memory and streams each step's slab to the device
-(``data.host_stream``).
+(``data.host_stream``). ``--per-step`` sets ``train.scan_epoch: false``:
+the epoch steps the train step from the host in place of replaying a
+captured CUDA graph of it (``train.trainer``).
 
 It times the real training path, ``Trainer.train_epoch`` over a (steps,
 batch) matrix of window indices, after one untimed epoch of ``warmup``
-rows, between two synchronizes, and prints one JSON line:
+rows (on CUDA its first step is eager and the graph is captured there),
+between two synchronizes, and prints one JSON line:
 
 - ``metric`` (train_samples_per_sec_per_chip), ``value`` (samples/s a
   rank: the global batch over the step time and the ranks), ``unit``,
   ``ranks`` (1 without ``--mesh``), ``step_ms``, ``device_kind`` (the
   card's name, or "cpu"),
   ``param_dtype``, ``sigma_head_rank`` (null without ``--sigma-rank``),
-  ``fused_optimizer`` and, with ``--host-stream``, ``host_stream: true``;
+  ``fused_optimizer``, ``scan_epoch`` (whether the epoch ran its steps
+  in place: on CUDA on one rank, as replays of a CUDA graph) and, with
+  ``--host-stream``, ``host_stream: true``;
   the model's ``leaves`` and ``parameters`` (a split leaf counted whole);
 - ``gflops_per_step`` and ``tflops_per_s``: the FLOPs of one more, untimed,
-  step (summed over the ranks), and their rate a rank, counted by
+  step, taken eagerly (the graphs are released first: a replay passes no
+  operator through the counter), summed over the ranks, and their rate a
+  rank, counted by
   ``torch.utils.flop_counter.FlopCounterMode``, 2*M*N*K for
   every matrix product (mm, addmm, bmm, baddbmm) and every convolution,
   forward and backward as autograd runs them (so the first convolution has
@@ -95,7 +102,7 @@ def peak_specs(name: str):
 
 def bench_config(
     batch: int, window: int, z_dim: int, ch, bf16_params: bool, precision: str = "bf16",
-    fused: bool = True, sigma_rank: int = 0, mesh=None,
+    fused: bool = True, sigma_rank: int = 0, mesh=None, scan_epoch: bool = True,
 ) -> dict:
     """The flagship's config sections, with ``train.minimal_test`` set."""
     return {
@@ -122,7 +129,7 @@ def bench_config(
         "train": {
             "lr": 1e-4, "optimizer": "adamw", "lr_schedule": "cawr", "num_epochs": 1, "seed": 0,
             "mesh": mesh, "clip_norm": 0, "fused_optimizer": fused,
-            "param_dtype": "bf16" if bf16_params else "f32", "minimal_test": True,
+            "param_dtype": "bf16" if bf16_params else "f32", "minimal_test": True, "scan_epoch": scan_epoch,
         },
         "loss": {
             "rotation": 1.0, "prior": 0.001, "root": 0.01, "jpe": 1.0,
@@ -133,12 +140,13 @@ def bench_config(
 
 def build(batch: int, window: int, z_dim: int, ch, device, *, precision: str = "bf16",
           bf16_params: bool = True, fused: bool = True, sigma_rank: int = 0, host_stream: bool = False,
-          mesh=None):
+          mesh=None, scan_epoch: bool = True):
     """The synthetic stream, the on-device frame store and midfwd window
     dataset (its store in host memory with ``host_stream``), the model and
     the trainer on ``device``, computing in ``precision`` ("bf16" or
     "fp32"), under ``train.mesh`` = ``mesh`` (over the default process
-    group's ranks). Returns (trainer, dataset)."""
+    group's ranks) and ``train.scan_epoch`` = ``scan_epoch``. Returns
+    (trainer, dataset)."""
     from scrubvae_torch import factory
     from scrubvae_torch.data.dataset import StreamDataset
     from scrubvae_torch.data.hoststream import HostStreamDataset
@@ -156,7 +164,7 @@ def build(batch: int, window: int, z_dim: int, ch, device, *, precision: str = "
     )
     if host_stream:
         ds = HostStreamDataset.from_stream(ds)
-    cfg = bench_config(batch, window, z_dim, ch, bf16_params, precision, fused, sigma_rank, mesh)
+    cfg = bench_config(batch, window, z_dim, ch, bf16_params, precision, fused, sigma_rank, mesh, scan_epoch)
     model, info = factory.build_model(
         cfg["model"], cfg["disentangle"], n_keypts=skel.n_keypts, direction_process="midfwd",
         arena_size=ARENA, discrete_classes=ds.discrete_classes, loss_keys=cfg["loss"].keys(),
@@ -177,6 +185,7 @@ def parse_args(argv=None):
     ap.add_argument("--no-fused", action="store_true", help="the unfused Adam in place of the kernel")
     ap.add_argument("--sigma-rank", type=int, default=0, help="low-rank fc_sigma (0: the dense head)")
     ap.add_argument("--host-stream", action="store_true", help="frame store in host memory, slabs streamed")
+    ap.add_argument("--per-step", action="store_true", help="train.scan_epoch: false (no CUDA graph)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--mesh", type=json.loads, default=None,
                     help='train.mesh as JSON, e.g. \'{"data": 2, "model": 2}\' (under torchrun)')
@@ -216,6 +225,7 @@ def run(args) -> dict:
         batch, args.window, args.z_dim, ch, device,
         precision="fp32" if args.small else "bf16", bf16_params=bf16_params,
         fused=not args.no_fused, sigma_rank=args.sigma_rank, host_stream=args.host_stream, mesh=args.mesh,
+        scan_epoch=not args.per_step,
     )
     rng = np.random.default_rng(0)
 
@@ -233,6 +243,8 @@ def run(args) -> dict:
         raise FloatingPointError(f"non-finite training loss in the bench run: {total}")
 
     counter = FlopCounterMode(display=False)
+    # an epoch of one row with no graph captured takes its step eagerly
+    trainer.release_graphs()
     with counter:
         trainer.train_epoch(1, idx_matrix(1))
     _sync(device)
@@ -257,6 +269,7 @@ def run(args) -> dict:
         "param_dtype": "bf16" if bf16_params else "f32",
         "sigma_head_rank": args.sigma_rank or None,
         "fused_optimizer": not args.no_fused,
+        "scan_epoch": trainer.scan_train,
         "leaves": len(params),
         "parameters": sum(
             p.numel() if shard is None else shard[1] for p, shard in zip(params, pmesh.leaf_shards(trainer.model))

@@ -61,8 +61,10 @@
 //   in [0, 65536)) replaces Philox so that the kernel can also be held
 //   bitwise against its plain PyTorch version on given bits.
 // - The per-step scalars (lr, b1c, b2c, gscale) are read from a 4-float
-//   device buffer, so a training step never waits on the host. The kernel
-//   allocates nothing.
+//   device buffer and the Philox step from an int32 device word (the
+//   optimizer's update count), so a training step never waits on the host
+//   and a step captured in a CUDA graph draws new bits at every replay.
+//   The kernel allocates nothing.
 //
 // Build with -fmad=false: PyTorch computes the same formula as separate
 // elementwise ops, each rounded on its own; contracting a*b+c into one FMA
@@ -98,9 +100,9 @@ struct Params {
   const Leaf* leaves;  // this launch's rows of the leaf table
   const int2* chunks;  // (slot in `leaves`, chunk of that leaf) per block
   const float* scal;   // lr, b1c, b2c, gscale
+  const int32_t* step;  // the Philox step word, read on the device
   float b1, omb1, b2, omb2, eps, wd;
   uint64_t seed;
-  uint32_t step;
   const void* g[kMaxLeaves];  // gradient of each slot
 };
 static_assert(sizeof(Params) <= 4096, "kernel parameters are limited to 4 KB");
@@ -271,7 +273,7 @@ __global__ void __launch_bounds__(kThreads) fused_adamw_kernel(const __grid_cons
       noise_group(lf.noise, n, i0, cnt, noise_vec, nz);
     } else {
       const uint2 key = make_uint2(static_cast<uint32_t>(p.seed), static_cast<uint32_t>(p.seed >> 32));
-      philox_group(lf.group0 + q, lf.leaf, p.step, key, nz);
+      philox_group(lf.group0 + q, lf.leaf, static_cast<uint32_t>(*p.step), key, nz);
     }
   }
   if (vec) {
@@ -290,15 +292,17 @@ __global__ void __launch_bounds__(kThreads) fused_adamw_kernel(const __grid_cons
 // Plain C entry point (bound with ctypes): one launch over `n_chunks` chunks
 // of the `n_leaves` table rows at `leaves`, all of one dtype variant.
 // `grads` is a host array of n_leaves device pointers, copied into the
-// kernel's parameters. `chunk_elems` must equal the kernel's chunk size (the
-// tables were cut for it). Returns the cudaError_t of the launch; 0 means the
-// kernel was enqueued on `stream`.
+// kernel's parameters. `step` is a device pointer to the int32 Philox step.
+// `chunk_elems` must equal the kernel's chunk size (the tables were cut for
+// it). Returns the cudaError_t of the launch; 0 means the kernel was enqueued
+// on `stream`.
 extern "C" int fused_adamw_multi_launch(const void* leaves, const void* chunks, int n_chunks,
                                         const void* const* grads, int n_leaves, int w_bf16,
                                         int m_bf16, const void* scal, float b1, float omb1,
                                         float b2, float omb2, float eps, float wd, uint64_t seed,
-                                        uint32_t step, int64_t chunk_elems, void* stream) {
-  if (n_leaves < 1 || n_leaves > kMaxLeaves || chunk_elems != kChunkElems || n_chunks < 0)
+                                        const void* step, int64_t chunk_elems, void* stream) {
+  if (n_leaves < 1 || n_leaves > kMaxLeaves || chunk_elems != kChunkElems || n_chunks < 0 ||
+      step == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_chunks == 0) return 0;
   Params p;
@@ -313,7 +317,7 @@ extern "C" int fused_adamw_multi_launch(const void* leaves, const void* chunks, 
   p.eps = eps;
   p.wd = wd;
   p.seed = seed;
-  p.step = step;
+  p.step = static_cast<const int32_t*>(step);
   memcpy(p.g, grads, sizeof(void*) * n_leaves);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(n_chunks)), block(kThreads);

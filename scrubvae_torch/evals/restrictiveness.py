@@ -10,8 +10,10 @@ from __future__ import annotations
 import math
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
+from scrubvae_torch.device import cached_constant
 from scrubvae_torch.ops import kinematics as kin
 
 __all__ = ["generative_restrictiveness_batch"]
@@ -57,10 +59,9 @@ def generative_restrictiveness_batch(
         data["heading"] = torch.cat([torch.sin(rand_yaw), torch.cos(rand_yaw)], dim=-1)
     elif key == "avg_speed_3d":
         n = draw if draw is not None else torch.randn((B, 1), generator=generator, device=dev)
-        jitter = n * torch.tensor(SPD_STD, device=dev) * 1.5 + 0.5
-        data["avg_speed_3d"] = torch.clamp(
-            var_true + jitter, torch.tensor(SPD_MIN, device=dev), torch.tensor(SPD_MAX, device=dev)
-        )
+        std, lo, hi = (cached_constant(np.asarray(v), dev, torch.float32) for v in (SPD_STD, SPD_MIN, SPD_MAX))
+        jitter = n * std * 1.5 + 0.5
+        data["avg_speed_3d"] = torch.clamp(var_true + jitter, lo, hi)
     else:
         raise ValueError(f"unsupported factor {key!r}")
 
@@ -88,7 +89,8 @@ def generative_restrictiveness_batch(
             # the reference centres on the mid-frame part root here
             # (eval/eval.py:86-98), unlike preprocessing
             center = pose[:, W // 2, part[0], :][:, None, None, :]
-            rel = torch.diff((pose - center)[..., list(part[1:]), :], n=1, dim=-3)
+            joints = cached_constant(np.asarray(part[1:], dtype=np.int64), dev)
+            rel = torch.diff(torch.index_select(pose - center, -2, joints), n=1, dim=-3)
             cols.append(torch.sqrt((rel**2).sum(-1)).mean(dim=(-1, -2)))
         dxyz = torch.stack(cols, dim=-1)
         pred = torch.cat(

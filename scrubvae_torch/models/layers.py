@@ -24,6 +24,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from scrubvae_torch.device import device_constant, trace_safe_cache
 from scrubvae_torch.parallel.mesh import all_reduce
 
 __all__ = [
@@ -49,22 +50,6 @@ __all__ = [
     "f32_or_wider",
     "trace_safe_cache",
 ]
-
-
-def trace_safe_cache(fn):
-    """``functools.lru_cache`` for a function that builds tensors, bypassed
-    while ``torch.export`` or ``torch.compile`` traces: a trace runs on fake
-    tensors, and a fake tensor left in the cache would stand in for the real
-    one in every later eager call. Eager calls keep the cached tensors, so a
-    train step copies no index to the device."""
-    cached = functools.lru_cache(maxsize=None)(fn)
-
-    @functools.wraps(fn)
-    def wrapper(*args):
-        return fn(*args) if torch.compiler.is_compiling() else cached(*args)
-
-    wrapper.cache_clear = cached.cache_clear
-    return wrapper
 
 
 def f32_or_wider(x: torch.Tensor) -> torch.Tensor:
@@ -261,7 +246,7 @@ def _tril_info(D: int, diag_only: bool):
 @trace_safe_cache
 def _tril_tensors(D: int, diag_only: bool, device: torch.device):
     rows, cols, diag_pos = _tril_info(D, diag_only)
-    return tuple(torch.as_tensor(a, device=device) for a in (rows, cols, diag_pos))
+    return tuple(device_constant(a, device) for a in (rows, cols, diag_pos))
 
 
 def _diag_only(xp: torch.Tensor, D: int, diag_only: Optional[bool]) -> bool:

@@ -27,7 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from scrubvae_torch.models.layers import Linear, lecun_normal_, trace_safe_cache
+from scrubvae_torch.device import device_constant, trace_safe_cache
+from scrubvae_torch.models.layers import Linear, lecun_normal_
 from scrubvae_torch.ops.smallsolve import spd_slogdet, spd_solve
 
 __all__ = [
@@ -143,7 +144,7 @@ def polynomial_indices(nx: int, order: int) -> tuple:
 
 @trace_safe_cache
 def _polynomial_indices_on(nx: int, order: int, device: torch.device) -> tuple:
-    return tuple(idx.to(device) for idx in polynomial_indices(nx, order))
+    return tuple(device_constant(idx, device) for idx in polynomial_indices(nx, order))
 
 
 def polynomial_expand(x: torch.Tensor, order: int) -> torch.Tensor:
@@ -154,7 +155,13 @@ def polynomial_expand(x: torch.Tensor, order: int) -> torch.Tensor:
     nx = x.shape[-1]
     feats = [x]
     for idx in _polynomial_indices_on(nx, order, x.device):
-        feats.append(torch.prod(x[:, idx], dim=-1) / idx.shape[0] * nx)
+        # the factors multiplied in turn: torch.prod's backward asks the
+        # host whether a factor is zero, which a CUDA graph cannot capture
+        cols = x[:, idx]
+        mono = cols[..., 0]
+        for j in range(1, idx.shape[1]):
+            mono = mono * cols[..., j]
+        feats.append(mono / idx.shape[0] * nx)
     return torch.cat(feats, dim=-1)
 
 
@@ -224,7 +231,7 @@ def mals_forward(state: MALSState, x: torch.Tensor):
     x = _mals_features(state, x)
     l2 = torch.full((x.shape[1],), state.l2_reg, dtype=x.dtype, device=x.device)
     if state.bias:
-        l2[-1] = 0.0
+        l2[-1:].fill_(0.0)  # a fill on the device: an indexed store of a float would copy it from the host
     W0 = spd_solve(state.Sxx0 + torch.diag(l2), state.Sxy0)
     W1 = spd_solve(state.Sxx1 + torch.diag(l2), state.Sxy1)
     return x @ W0, x @ W1
@@ -555,8 +562,9 @@ def adv_shuffle(z: torch.Tensor, v: torch.Tensor, v_ind: torch.Tensor, perm: tor
 
 
 def _adv_labels(batch: int, device) -> torch.Tensor:
-    y = torch.cat([torch.zeros(batch, dtype=torch.long), torch.ones(batch, dtype=torch.long)])
-    return F.one_hot(y, 2).float().to(device)
+    # made on the device: a host copy could not be captured in a CUDA graph
+    y = (torch.arange(2 * batch, device=device) >= batch).long()
+    return F.one_hot(y, 2).float()
 
 
 def _softmax_ce(pred_probs: torch.Tensor, y_onehot: torch.Tensor) -> torch.Tensor:
@@ -631,8 +639,9 @@ def mi_init(
     + bandwidth, ``model_diag`` (S, x_dim) being diag(L) of the samples'
     Cholesky factors."""
     f32 = dict(dtype=torch.float32, device=x_s.device)
-    log2pi = torch.log(torch.tensor(2.0 * math.pi, **f32))
-    bw = torch.tensor(bandwidth, **f32)
+    # filled on the device: a copy from the host could not be captured
+    log2pi = torch.log(torch.full((), 2.0 * math.pi, **f32))
+    bw = torch.full((), bandwidth, **f32)
     x_dim, y_dim = x_s.shape[1], y_s.shape[1]
     if var_mode == "sphere":
         var_s = bw
@@ -648,7 +657,7 @@ def mi_init(
         var_s=var_s,
         logA_x=logA_x,
         logA_y=y_dim * (log2pi + torch.log(bw)),
-        valid=torch.tensor(float(valid), **f32),
+        valid=torch.full((), float(valid), **f32),
         gamma=float(bandwidth),
         var_mode=var_mode,
     )

@@ -108,7 +108,7 @@ def _lib():
                 p, ctypes.c_int,  # grads (host array) n_leaves
                 ctypes.c_int, ctypes.c_int, p,  # w_bf16 m_bf16 scal
                 f, f, f, f, f, f,  # b1 1-b1 b2 1-b2 eps wd
-                ctypes.c_uint64, ctypes.c_uint32, ctypes.c_int64,  # seed step chunk_elems
+                ctypes.c_uint64, p, ctypes.c_int64,  # seed step (device int32) chunk_elems
                 p,  # stream
             ]
             fn.restype = ctypes.c_int
@@ -151,9 +151,11 @@ def philox4x32_10(ctr: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
     return torch.stack([c0, c1, c2, c3], -1)
 
 
-def philox_noise(numel: int, seed: int, leaf: int, step: int, *, start: int = 0, device=None) -> torch.Tensor:
+def philox_noise(numel: int, seed: int, leaf: int, step, *, start: int = 0, device=None) -> torch.Tensor:
     """The kernel's rounding noise of elements ``start .. start + numel - 1``
     of a leaf: int32 ``(3, numel)``, rows w, m, n, values in [0, 65536).
+    ``step`` is an int or an integer tensor of one element (the optimizer's
+    update count, as the kernel reads it).
 
     Group q (elements 8q .. 8q + 7) takes three draws, counter (q low word,
     (q >> 32) << 2 | d, leaf, step) for d = 0, 1, 2 and key (seed low word,
@@ -163,9 +165,10 @@ def philox_noise(numel: int, seed: int, leaf: int, step: int, *, start: int = 0,
     q0, q1 = start // 8, (start + numel + 7) // 8
     q = torch.arange(q0, q1, dtype=torch.int64, device=device)
     d = torch.arange(3, dtype=torch.int64, device=device)
+    step = torch.as_tensor(step).reshape(()).to(device=device, dtype=torch.int64) & _U32
     ctr = torch.stack(torch.broadcast_tensors(
         (q & _U32)[:, None], ((q >> 32) << 2)[:, None] | d,
-        torch.tensor(leaf & _U32, device=device), torch.tensor(step & _U32, device=device),
+        torch.tensor(leaf & _U32, device=device), step,
     ), -1)  # (groups, 3 draws, 4 words)
     key = torch.tensor([seed & _U32, (seed >> 32) & _U32], dtype=torch.int64, device=device)
     r = philox4x32_10(ctr, key)
@@ -248,7 +251,7 @@ def fused_adamw_multi_reference(
     b2c,
     gscale,
     seed: int = 0,
-    step: int = 0,
+    step=0,
     leaf_ids: Optional[Sequence[int]] = None,
     noise: Optional[Sequence[Optional[torch.Tensor]]] = None,
     starts: Optional[Sequence[int]] = None,
@@ -260,8 +263,9 @@ def fused_adamw_multi_reference(
     """The plain version over a list of leaves: ``fused_adamw_leaf_reference``
     of each leaf with its Philox noise (``philox_noise`` of its leaf word,
     ``leaf_ids[i]``, by default ``i``, from element ``starts[i]`` of the
-    whole leaf, by default 0), or with ``noise[i]`` where given. Returns
-    one ``(new_w, new_mu, new_nu)`` per leaf."""
+    whole leaf, by default 0), or with ``noise[i]`` where given; ``step``
+    as ``philox_noise`` takes it. Returns one ``(new_w, new_mu, new_nu)``
+    per leaf."""
     out = []
     for i, (w, g, mu, nu) in enumerate(zip(ws, gs, mus, nus)):
         nz = noise[i] if noise is not None else None
@@ -420,6 +424,16 @@ def _check_call(table: LeafTable, grads: Sequence[torch.Tensor], scal: torch.Ten
         raise ValueError("fused_adamw: scal must be 4 f32 values on the leaves' device")
 
 
+def _step_word(step, device: torch.device) -> torch.Tensor:
+    """The Philox step as the kernel reads it: an int32 word on ``device``
+    (the optimizer's count as it is, an int filled into a new word)."""
+    if isinstance(step, torch.Tensor):
+        if step.dtype != torch.int32 or step.numel() != 1 or step.device != device:
+            raise ValueError(f"fused_adamw: a step tensor must be one int32 word on {device}")
+        return step
+    return torch.full((), step & 0xFFFFFFFF, dtype=torch.int64, device=device).to(torch.int32)
+
+
 def _apply(table: LeafTable, grads, scal, *, b1, b2, eps, wd, seed, step) -> int:
     """Update every leaf of ``table`` in place; returns the kernel launches
     made (0 on the CPU, where the plain version runs)."""
@@ -439,6 +453,7 @@ def _apply(table: LeafTable, grads, scal, *, b1, b2, eps, wd, seed, step) -> int
         raise RuntimeError(f"fused_adamw: no kernel for device {table.device}")
     fn = _lib().fused_adamw_multi_launch
     stream = torch.cuda.current_stream(table.device).cuda_stream
+    step = _step_word(step, table.device)
     rows, chunks = table.rows.data_ptr(), table.chunks.data_ptr()
     for b in table.batches:
         gptrs = (ctypes.c_void_p * len(b.idx))(*[grads[i].data_ptr() for i in b.idx])
@@ -446,7 +461,7 @@ def _apply(table: LeafTable, grads, scal, *, b1, b2, eps, wd, seed, step) -> int
             rows + 56 * b.row0, chunks + 8 * b.chunk0, b.n_chunks, gptrs, len(b.idx),
             int(b.w_bf16), int(b.m_bf16), scal.data_ptr(),
             b1, 1.0 - b1, b2, 1.0 - b2, eps, wd,
-            seed & 0xFFFFFFFFFFFFFFFF, step & 0xFFFFFFFF, CHUNK_ELEMS, stream,
+            seed & 0xFFFFFFFFFFFFFFFF, step.data_ptr(), CHUNK_ELEMS, stream,
         )
         if err != 0:
             raise RuntimeError(f"fused_adamw kernel launch failed: cudaError {err}")
@@ -463,7 +478,7 @@ def fused_adamw_multi(
     eps: float = 1e-8,
     wd: float = 0.0,
     seed: int = 0,
-    step: int = 0,
+    step=0,
 ) -> None:
     """One AdamW step on every leaf of ``table``, in place on its ``w``,
     ``mu`` and ``nu``: on the card one kernel launch per batch of the table
@@ -472,7 +487,14 @@ def fused_adamw_multi(
     ``grads`` are contiguous, one per leaf, of its ``w``'s shape and dtype;
     ``scal`` holds the per-step f32 scalars ``[lr, b1c, b2c, gscale]`` on the
     leaves' device. The stochastic-rounding bits are ``philox_noise`` of
-    ``seed``, the leaf's word and ``step``, unless the table gives noise."""
+    ``seed``, the leaf's word and ``step``, unless the table gives noise.
+    ``step`` is an int or, as the optimizer passes it, an int32 word on the
+    leaves' device that the kernel reads when it runs (so a launch captured
+    in a CUDA graph takes the step of each replay).
+
+    ``launches`` counts the kernel launches; a launch recorded while a CUDA
+    graph is captured counts once for each replay of the graph
+    (``train.graph.StepGraph``), not at the capture."""
     fused_adamw_multi.launches += _apply(
         table, grads, scal, b1=b1, b2=b2, eps=eps, wd=wd, seed=seed, step=step
     )

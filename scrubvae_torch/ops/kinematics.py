@@ -17,6 +17,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from scrubvae_torch.device import cached_constant
 from scrubvae_torch.ops import quaternion as qtn
 
 __all__ = [
@@ -84,7 +85,7 @@ class KinematicTree:
 
 
 def _index(a: np.ndarray, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+    return cached_constant(np.asarray(a, dtype=np.int64), device)
 
 
 def inv_kin(
@@ -94,13 +95,13 @@ def inv_kin(
     dev = pose.device
     fwd = pose[..., forward_indices[1], :] - pose[..., forward_indices[0], :]
     fwd = fwd / torch.linalg.vector_norm(fwd, dim=-1, keepdim=True)
-    target = fwd.new_tensor([1.0, 0.0, 0.0]).expand(fwd.shape)
+    target = cached_constant(np.array([1.0, 0.0, 0.0]), dev, fwd.dtype).expand(fwd.shape)
     root_quat = qtn.qbetween(fwd, target)
 
     parent_pos = torch.index_select(pose, -2, _index(np.maximum(tree.pos_parent, 0), dev))
     bone = pose - parent_pos
     bone = bone / torch.clamp(torch.linalg.vector_norm(bone, dim=-1, keepdim=True), min=1e-12)
-    offsets = torch.as_tensor(tree.offsets, dtype=pose.dtype, device=dev)
+    offsets = cached_constant(tree.offsets, dev, pose.dtype)
     g = qtn.qbetween(offsets.expand(pose.shape), bone)
     # global accumulated rotation: g_j for children (chain telescoping),
     # root_quat for the root
@@ -153,8 +154,8 @@ def segment_lengths(pose: torch.Tensor, tree: KinematicTree) -> torch.Tensor:
     dev = pose.device
     parent_pos = torch.index_select(pose, -2, _index(np.maximum(tree.pos_parent, 0), dev))
     seg = torch.linalg.vector_norm(pose - parent_pos, dim=-1, keepdim=True)
-    offsets = torch.as_tensor(tree.offsets, dtype=pose.dtype, device=dev)
-    mask = torch.as_tensor(tree.pos_parent >= 0, dtype=pose.dtype, device=dev)[..., None]
+    offsets = cached_constant(tree.offsets, dev, pose.dtype)
+    mask = cached_constant(tree.pos_parent >= 0, dev, pose.dtype)[..., None]
     return offsets * seg * mask + offsets * (1.0 - mask)
 
 
@@ -176,7 +177,7 @@ def speed_parts(
             pose_part = centered - centered[..., part[0] : part[0] + 1, :]
         else:
             pose_part = centered
-        rel = torch.diff(pose_part[..., list(part[1:]), :], n=1, dim=-3)
+        rel = torch.diff(torch.index_select(pose_part, -2, _index(part[1:], pose.device)), n=1, dim=-3)
         rel = torch.sqrt(torch.sum(rel**2, dim=-1))
         cols.append(rel.mean(dim=(-1, -2)))
     return torch.stack(cols, dim=-1)

@@ -9,7 +9,10 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+from scrubvae_torch.device import cached_constant
 
 __all__ = [
     "qinv",
@@ -33,7 +36,7 @@ __all__ = [
 
 def qinv(q: torch.Tensor) -> torch.Tensor:
     """Conjugate of unit quaternion(s): (w, -x, -y, -z)."""
-    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+    return q * cached_constant(np.array([1.0, -1.0, -1.0, -1.0]), q.device, q.dtype)
 
 
 def qnormalize(q: torch.Tensor, eps: float = 0.0) -> torch.Tensor:

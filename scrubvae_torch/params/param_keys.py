@@ -3,9 +3,11 @@
 plus keys it reads without declaring them.
 
 The JAX package's accelerator keys stay in the schema so one config file
-reads the same in both packages. In the port ``train.mesh`` must be unset
-(one device), and ``train.scan_epoch`` and ``train.donate`` are accepted
-and have no effect (see ``scrubvae_torch.train.trainer.Trainer``).
+reads the same in both packages. In the port ``train.mesh`` trains over
+torch.distributed ranks, ``train.scan_epoch`` (unset means on) runs the
+train and validation epochs as replays of captured CUDA graphs on the card
+and as the in-place step on the CPU, and ``train.donate`` is accepted and
+has no effect (see ``scrubvae_torch.train.trainer``).
 """
 
 PARAM_KEYS = dict(
@@ -64,14 +66,14 @@ PARAM_KEYS = dict(
         "lr_schedule",
         "minimal_test",
         "precision",  # "bf16" | "f32" compute for the conv/matmul path
-        "mesh",  # must be unset in the port (one device)
+        "mesh",  # {data: D, model: M} over torch.distributed ranks (parallel.mesh)
         "seed",
         "donate",  # accepted, no effect in the port
         "moment_dtype",  # "bf16" (default) | "f32" Adam moments of large leaves
         "param_dtype",  # "bf16" storage for large kernels (stochastic rounding)
         "fused_optimizer",  # the fused AdamW kernel (the port's only optimizer)
         "clip_norm",  # grad-clip max norm; 0 disables; None = 1e6
-        "scan_epoch",  # accepted, no effect in the port
+        "scan_epoch",  # the epochs as CUDA graphs on the card (unset means on)
         "eval_start_epoch",  # first epoch for val metrics (reference: 50)
         "halt_on_nonfinite",  # divergence tripwire (default on)
     ],

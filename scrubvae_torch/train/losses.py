@@ -48,6 +48,8 @@ def compute_batch_loss(
     mesh=None,
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Dict]]:
     """Returns (batch-loss dict incl. 'total', new scrub state).
+    ``loss_scale`` maps each loss key to its weight: a float, or a 0-dim
+    float64 tensor on the device.
     ``adv_perm`` is the batch permutation of every ``{feat}_an`` loss's
     shuffle, ``feat_slices[feat]`` the columns of ``feat`` in ``var``.
     ``static_loss_scale`` holds the configured loss weights: the sign of
@@ -167,6 +169,8 @@ def compute_batch_loss(
         w = loss_scale.get(k)
         if w is None:
             continue
-        total = total + w * v
+        # a weight on the device (a captured step's, train.graph) is
+        # rounded to the term's dtype, as a Python float weight is
+        total = total + (w.to(v.dtype) if isinstance(w, torch.Tensor) else w) * v
     bl["total"] = total
     return bl, new_state

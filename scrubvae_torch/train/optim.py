@@ -33,6 +33,14 @@ here. Leaves of at least ``MIN_LOWP_ELEMS`` elements keep bf16 moments
 (stochastically rounded); smaller ones keep f32 moments, so optimizer state
 has the JAX package's dtypes. The step count, the lr, the bias corrections
 and the optional clip factor stay on the device: a step never syncs the host.
+
+Every optimizer updates its state in place: the parameters, the moments
+(or the momentum trace), the device count (``count.add_(1)``) and the
+unfused Adam's rounding generator. So a step reads and writes the same
+storage each time, as a step captured in a CUDA graph must
+(``train.graph``); the fused kernel takes its Philox step from the count
+on the device. ``update_and_apply`` returns the state object with its host
+fields advanced (``AdamWState.step``).
 """
 
 from __future__ import annotations
@@ -66,7 +74,7 @@ class AdamWState:
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
     table: LeafTable  # the parameters and moments as the kernel sees them
-    step: int = 0  # host mirror of count; the Philox counter of the rounding bits
+    step: int = 0  # host mirror of count (the kernel reads its Philox step from count)
     split: tuple = ()  # per leaf, a slice of a split leaf (the clip's norm)
     group: Optional[object] = None  # the ranks holding the other slices
 
@@ -134,19 +142,18 @@ class FusedAdamW:
         state: AdamWState,
         params: Sequence[torch.Tensor],
     ) -> AdamWState:
-        """Update ``params`` and the moments in place; returns the new state.
-        Raises if a parameter or moment no longer lies where ``init`` found
-        it."""
+        """Update ``params``, the moments and the count in place; returns the
+        state with its host mirror of the count advanced. Raises if a
+        parameter or moment no longer lies where ``init`` found it."""
         state.table.check_storage(params, state.mu, state.nu)
         grads = [torch.zeros_like(p) if g is None else g.contiguous() for g, p in zip(grads, params)]
-        count = state.count + 1
-        scal = self._scalars(count, grads, state.split, state.group)
-        step = state.step + 1
+        state.count.add_(1)
+        scal = self._scalars(state.count, grads, state.split, state.group)
         fused_adamw_multi(
             state.table, grads, scal,
-            b1=self.b1, b2=self.b2, eps=self.eps, wd=self.wd, seed=self.seed, step=step,
+            b1=self.b1, b2=self.b2, eps=self.eps, wd=self.wd, seed=self.seed, step=state.count,
         )
-        return dataclasses.replace(state, count=count, step=step)
+        return dataclasses.replace(state, step=state.step + 1)
 
 
 def _lr_at(lr, count: torch.Tensor) -> torch.Tensor:
@@ -272,13 +279,14 @@ class AdamLowp:
         params: Sequence[torch.Tensor],
         noise: Optional[Sequence] = None,
     ) -> AdamLowpState:
-        """Update ``params`` and the moments in place; returns the new
-        state. ``noise[i]``, when given, is leaf i's (mu, nu) rounding bits
-        in place of the generator's (None for an f32 leaf)."""
+        """Update ``params``, the moments, the count and the generator in
+        place; returns ``state``. ``noise[i]``, when given, is leaf i's (mu,
+        nu) rounding bits in place of the generator's (None for an f32
+        leaf)."""
         grads = [torch.zeros_like(p) if g is None else g.float() for g, p in zip(grads, params)]
         shards = state.shards or (None,) * len(params)
         grads = _clip_by_global_norm(grads, self.clip_norm, tuple(s is not None for s in shards), state.group)
-        count = state.count + 1
+        count = state.count.add_(1)
         t = count.float()
         b1c = 1.0 - torch.pow(self.b1, t)
         b2c = 1.0 - torch.pow(self.b2, t)
@@ -293,7 +301,7 @@ class AdamLowp:
             p.copy_((p + step_size * u).to(p.dtype))
             m.copy_(m_new)
             v.copy_(v_new)
-        return dataclasses.replace(state, count=count)
+        return state
 
 
 @dataclasses.dataclass
@@ -335,14 +343,13 @@ class SGD:
     ) -> SGDState:
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
         grads = _clip_by_global_norm(grads, self.clip_norm, state.split, state.group)
-        count = state.count + 1
-        step_size = -_lr_at(self.lr, count)
+        step_size = -_lr_at(self.lr, state.count.add_(1))
         for p, g, t in zip(params, grads, state.trace):
             t_new = g + self.momentum * t
             u = g + self.momentum * t_new
             t.copy_(t_new)
             p.copy_((p + step_size.to(u.dtype) * u).to(p.dtype))
-        return dataclasses.replace(state, count=count)
+        return state
 
 
 def cyclical_beta(epoch: int, beta_max: float = 1.0, len_cycle: int = 100, R: float = 0.5) -> float:

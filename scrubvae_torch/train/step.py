@@ -13,7 +13,14 @@ batch from the same generator and keeps its rows of the noise; the losses
 follow ``compute_batch_loss``; the gradients are summed over ``data``; the
 streaming scrubbers, the discriminators' inner fit and the MCMI estimator
 run replicated on the latents and labels gathered over ``data``, so their
-states stay the same on every rank."""
+states stay the same on every rank.
+
+``make_inplace_step`` is the form of the train step that a CUDA graph
+captures (``train.graph``, ``Trainer.train_epoch`` under
+``train.scan_epoch``): every state tensor the step produces lands in the
+tensor it came from, the loss weights and the window indices are read from
+device buffers and the metrics are summed on the device; it equals the
+train step bit for bit on any device."""
 
 from __future__ import annotations
 
@@ -27,10 +34,11 @@ from scrubvae_torch.models import scrubbers as scr
 from scrubvae_torch.models.layers import packed_diag
 from scrubvae_torch.parallel.mesh import data_parallel, gather_rows, reduce_sum, shard_batch, step_rows
 from scrubvae_torch.train.losses import compute_batch_loss
-from scrubvae_torch.train.state import TrainState
+from scrubvae_torch.train.state import TrainState, tree_map
 
 __all__ = [
-    "feature_slices", "draw_adv_perms", "encode_mi_state", "make_train_step", "make_grad_step", "make_eval_step",
+    "feature_slices", "draw_adv_perms", "encode_mi_state", "make_train_step", "land_state", "make_inplace_step",
+    "make_grad_step", "make_eval_step",
 ]
 
 STREAMING_UPDATES = {"moving_avg_lsq": scr.mals_update, "moving_avg": scr.ma_update, "qda": scr.qda_update}
@@ -196,6 +204,55 @@ def make_train_step(
         return new_state, metrics
 
     return step
+
+
+def land_state(old, new):
+    """``new`` (a state the train step produced from ``old``) carried in
+    ``old``'s storage: every tensor of ``new`` that is not ``old``'s
+    counterpart is copied into it, through dataclasses, dicts, lists and
+    tuples of the same layout (``tree_map``). Returns ``old``'s layout with
+    ``new``'s host values (step counts, settings); generators, modules and
+    leaf tables are shared by both and kept."""
+
+    def land(n, o):
+        if not isinstance(n, torch.Tensor) or n is o:
+            return n
+        if o.shape != n.shape or o.dtype != n.dtype:
+            raise ValueError(
+                f"land_state: a {tuple(n.shape)} {n.dtype} state tensor does not fit the "
+                f"{tuple(o.shape)} {o.dtype} one it replaces"
+            )
+        o.copy_(n)
+        return o
+
+    return tree_map(land, new, old)
+
+
+def make_inplace_step(step: Callable) -> Callable:
+    """``step`` (``make_train_step``'s) with its state carried in place:
+    ``inplace(state, idx, loss_scale, sums) -> state``. The step runs on
+    ``idx`` where it lies, with ``loss_scale`` mapping each loss key to a
+    0-dim float64 tensor (this epoch's weights, on the device); every state
+    tensor it produces is copied into the one of ``state`` it replaces
+    (``land_state``: the streaming scrubbers', the MCMI estimator's; the
+    parameters, moments, counts, BatchNorm statistics and discriminators
+    update in place already) and its metrics are added into ``sums``
+    (each created by its first step). Returns ``state``'s layout with the
+    host step counts advanced. So the step reads and writes the same
+    storage at every call, as a captured CUDA graph must, and computes
+    what ``step`` computes bit for bit."""
+
+    def inplace(state: TrainState, idx, loss_scale: Dict[str, torch.Tensor], sums: Dict[str, torch.Tensor]):
+        new_state, metrics = step(state, idx, loss_scale)
+        state = land_state(state, new_state)
+        for k, v in metrics.items():
+            if k in sums:
+                sums[k].add_(v)
+            else:
+                sums[k] = v.clone()
+        return state
+
+    return inplace
 
 
 def make_grad_step(

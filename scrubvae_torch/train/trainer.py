@@ -14,12 +14,32 @@ feeds each step a slab copied to the device ahead of it
 (``prefetch_to_device``, two deep), which the step assembles; the epoch's
 batch order is the device-resident one, from the same numpy generator.
 
-The JAX scanned epoch becomes a Python loop of steps over an index matrix.
-Two of the JAX package's accelerator options are accepted and have no
-effect: ``train.scan_epoch`` (the port always steps from the host: an
-eager step has no program to scan) and ``train.donate`` (steps update
-parameters, moments and statistics in place, so nothing is left to
-donate).
+Every epoch runs its steps in the form that carries the state in place
+(``make_inplace_step``), which computes what the functional train step
+computes bit for bit. ``train.scan_epoch`` (unset means on, as in the JAX
+package, where it scans the epoch as one program) decides whether the
+epochs replay CUDA graphs of that step. On CUDA, the train epoch uploads its (steps, batch) index matrix once, takes its first step
+eagerly on a side stream (with host synchronisation an error), captures
+one step in a CUDA graph (``train.graph``) and replays it for every other
+row, reading each row from a static buffer and the loss weights from a
+device buffer; the metrics are summed on the device and read once, at the
+epoch's end. The validation epoch likewise captures one full batch
+(forward, losses, mu and the generative-restrictiveness decodes with
+their draws) and replays it; the ragged tail runs eagerly. Each graph is
+captured once per trainer and again only when a tensor it reads no
+longer lies where it was captured (an MCMI refresh, a restored state).
+On CUDA the train and validation epochs route torch's linear algebra to
+cuSOLVER while they run (``graph.capturable_linalg``), graph or not, and
+put the process's setting back after.
+A failed capture raises: nothing falls back to eager steps. On the CPU,
+and with ``scan_epoch: false``, the in-place step runs eagerly, one call
+from the host a step; a graph epoch equals the eager one bit for bit (on
+the card, with deterministic algorithms). As in the JAX package a
+host-streamed train split (``data.host_stream``) always steps from the
+host, and a mesh of more than one rank steps eagerly: gloo stages CUDA tensors through the host, which a capture
+cannot hold, and NCCL capture is not done yet. ``train.donate`` is
+accepted and has no effect (steps update parameters, moments and
+statistics in place, so nothing is left to donate).
 
 ``train.mesh`` (``{data: D, model: M}``, an int, ``true`` or -1: see
 ``parallel.mesh.make_mesh``) trains over the ranks of the default process
@@ -48,6 +68,7 @@ in the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Dict, Optional
 
@@ -56,7 +77,7 @@ import torch
 import torch.distributed as dist
 
 from scrubvae_torch import factory
-from scrubvae_torch.data.dataset import epoch_batches, epoch_index_matrix
+from scrubvae_torch.data.dataset import epoch_index_matrix
 from scrubvae_torch.data.hoststream import HostStreamDataset, prefetch_to_device
 from scrubvae_torch.device import resolve_device
 from scrubvae_torch.evals import metrics as em
@@ -64,9 +85,10 @@ from scrubvae_torch.evals.restrictiveness import generative_restrictiveness_batc
 from scrubvae_torch.models import scrubbers as scr
 from scrubvae_torch.parallel import mesh as pmesh
 from scrubvae_torch.train import optim
+from scrubvae_torch.train.graph import StepGraph, advance_counts, capturable_linalg, no_host_sync, warm_up
 from scrubvae_torch.train.state import TrainState
 from scrubvae_torch.train.step import (
-    encode_mi_state, feature_slices, make_eval_step, make_grad_step, make_train_step,
+    encode_mi_state, feature_slices, make_eval_step, make_grad_step, make_inplace_step, make_train_step,
 )
 from scrubvae_torch.utils import checkpoint as ckpt
 from scrubvae_torch.utils.logging import MetricLogger
@@ -74,6 +96,13 @@ from scrubvae_torch.utils.logging import MetricLogger
 __all__ = ["Trainer", "train"]
 
 GEN_RESTRICT_KEYS = ("heading", "avg_speed_3d")
+
+
+def _to_host(sums: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """The device scalars of ``sums`` as floats, sorted by key, read in
+    one copy."""
+    keys = sorted(sums)
+    return dict(zip(keys, torch.stack([sums[k].double() for k in keys]).tolist())) if keys else {}
 
 
 class Trainer:
@@ -190,6 +219,23 @@ class Trainer:
             if self.val_ds is not None
             else None
         )
+        scan = self.train_cfg.get("scan_epoch")
+        self.use_scan_epoch = scan is None or bool(scan)
+        self.scan_train = self.use_scan_epoch and not self.host_stream
+        ranks = 1 if self.mesh is None else self.mesh.data * self.mesh.model
+        # the epochs as CUDA graphs (the module docstring)
+        self.use_graphs = self.use_scan_epoch and self.device.type == "cuda" and ranks == 1
+        self.inplace_step = make_inplace_step(self.train_step)
+        self._loss_vec = None  # this epoch's loss weights, on the device
+        self._train_sums: Dict[str, torch.Tensor] = {}
+        self._eval_sums: Dict[str, torch.Tensor] = {}
+        self._idx_buf = self._eval_idx_buf = None
+        self._draw_bufs: Dict[str, torch.Tensor] = {}
+        self._train_graph = self._eval_graph = None
+        self._train_graph_before = None  # the state the captured train step was given
+        self._eval_graph_given = False  # whether the captured eval batch reads given draws
+        self.graph_captures = 0  # captures of the train and eval steps so far
+        self._eval_gen = torch.Generator(device=self.device)
         self.is_main = self.mesh is None or self.mesh.is_main
         self.logger = (
             MetricLogger(
@@ -245,28 +291,93 @@ class Trainer:
             if p.dtype == torch.float32 and p.numel() >= optim.FusedAdamW.MIN_LOWP_ELEMS:
                 p.data = p.data.to(torch.bfloat16)
 
+    def _epoch_linalg(self):
+        """The linear-algebra route of an epoch on this trainer's device
+        (``capturable_linalg`` on CUDA)."""
+        return capturable_linalg() if self.device.type == "cuda" else contextlib.nullcontext()
+
     def train_epoch(self, epoch: int, idx_matrix: Optional[np.ndarray] = None) -> Dict[str, float]:
         """One pass over ``idx_matrix`` (steps, batch) of window indices, a
         shuffled epoch by default (for a host-streamed split, the slabs of
-        those rows); returns the mean of each loss term."""
-        loss_scale = self.loss_scale_for_epoch(epoch)
+        those rows) through the in-place step, on CUDA under
+        ``train.scan_epoch`` as replays of a captured step (the module
+        docstring); returns the mean of each loss term, read from the
+        device once."""
+        weights = self._loss_weights(self.loss_scale_for_epoch(epoch))
         if idx_matrix is None:
             idx_matrix = epoch_index_matrix(len(self.train_ds), self.batch_size, self.np_rng)
+        idx_matrix = np.asarray(idx_matrix)
         if self.host_stream:
             feed = prefetch_to_device(
-                self.train_ds.epoch_slabs(np.asarray(idx_matrix)), size=2, device=self.device,
-                stats=self.stream_stats,
+                self.train_ds.epoch_slabs(idx_matrix), size=2, device=self.device, stats=self.stream_stats,
             )
         else:
-            feed = torch.as_tensor(pmesh.shard_batch(self._dp, np.asarray(idx_matrix), axis=1), device=self.device)
-        sums: Dict[str, torch.Tensor] = {}
-        for batch in feed:
-            self.state, metrics = self.train_step(self.state, batch, loss_scale)
-            for k, v in metrics.items():
-                sums[k] = sums[k] + v if k in sums else v
+            feed = torch.as_tensor(pmesh.shard_batch(self._dp, idx_matrix, axis=1), device=self.device)
+        sums = self._train_sums
+        for v in sums.values():
+            v.zero_()
+        with self._epoch_linalg():
+            if self.scan_train and self.use_graphs:
+                self._graph_train_rows(feed, weights, sums)
+            else:
+                for batch in feed:
+                    self.state = self.inplace_step(self.state, batch, weights, sums)
         n = max(len(idx_matrix), 1)
         # sorted, as the JAX package's jitted steps return their dicts
-        return {k: float(sums[k]) / n for k in sorted(sums)}
+        return {k: v / n for k, v in _to_host(sums).items()}
+
+    def _loss_weights(self, loss_scale: Dict[str, float]) -> Dict[str, torch.Tensor]:
+        """``loss_scale`` written into the float64 device buffer that the
+        in-place steps read, one 0-dim view a key."""
+        keys = sorted(loss_scale)
+        if self._loss_vec is None or self._loss_vec.numel() != len(keys):
+            self._loss_vec = torch.zeros(len(keys), dtype=torch.float64, device=self.device)
+        self._loss_vec.copy_(torch.tensor([float(loss_scale[k]) for k in keys], dtype=torch.float64))
+        return {k: self._loss_vec[i] for i, k in enumerate(keys)}
+
+    def _generators(self) -> list:
+        """The generators a train step draws from: the train state's and
+        the unfused Adam's rounding generator."""
+        opt_gen = getattr(self.state.opt_state, "generator", None)
+        return [self.state.generator] + ([opt_gen] if opt_gen is not None else [])
+
+    def _graph_train_rows(self, rows: torch.Tensor, weights: Dict[str, torch.Tensor], sums: Dict[str, torch.Tensor]):
+        """The rows through the in-place step: the first eagerly and the
+        others as replays of the captured step (captured again when what it
+        reads has moved)."""
+
+        def reads():
+            return (self.model, self.state, self.train_ds, self._idx_buf, self._loss_vec, sums)
+
+        graph = self._train_graph
+        if graph is not None and not graph.valid(reads(), self._generators()):
+            graph = self._train_graph = None
+        if self._idx_buf is None or self._idx_buf.shape != rows.shape[1:]:
+            graph = self._train_graph = None
+            self._idx_buf = torch.empty(rows.shape[1:], dtype=rows.dtype, device=self.device)
+        first = 0
+        if graph is None:
+            self._idx_buf.copy_(rows[0])
+            with no_host_sync():
+                self.state = warm_up(lambda: self.inplace_step(self.state, self._idx_buf, weights, sums))
+            first = 1
+            if len(rows) > 1:
+                before = self.state
+                graph = self._train_graph = StepGraph(
+                    lambda: self.inplace_step(before, self._idx_buf, weights, sums), reads(), self._generators()
+                )
+                self._train_graph_before = before
+                self.graph_captures += 1
+        for r in rows[first:]:
+            self._idx_buf.copy_(r)
+            graph.replay()
+        if len(rows) > first:
+            self.state = advance_counts(self.state, self._train_graph_before, graph.out, len(rows) - first)
+
+    def release_graphs(self) -> None:
+        """Drop the captured train and eval steps and their memory pools
+        (the next epoch captures again)."""
+        self._train_graph = self._eval_graph = None
 
     def _gen_restrict_keys(self) -> tuple:
         return tuple(k for k in self.info["disentangle_keys"] if k in GEN_RESTRICT_KEYS)
@@ -293,43 +404,54 @@ class Trainer:
         ``generative_restrictiveness_batch``); by default they come from a
         generator seeded with ``1000 + epoch``, which also draws each
         batch's adversarial shuffle first: a batch's shuffle, then one draw
-        per key in key order. Returns (metrics, mu of every val sample as a
-        numpy array)."""
+        per key in key order. The full batches' losses are summed on the
+        device (read once, at the end; the tail's are added on the host, as
+        the JAX package's scanned epoch does); on CUDA under
+        ``train.scan_epoch`` the first full batch runs eagerly and the others
+        replay it captured (the module docstring). Returns (metrics, mu of
+        every val sample as a numpy array)."""
+        with self._epoch_linalg():
+            return self._test_epoch(epoch, draws)
+
+    def _test_epoch(self, epoch: int, draws: Optional[Dict[str, list]]):
         if self.use_mcmi:
             self._refresh_eval_mi()
-        loss_scale = self.loss_scale_for_epoch(epoch)
-        gen = torch.Generator(device=self.device).manual_seed(1000 + epoch)
-        tree = self.val_ds.kinematic_tree
+        weights = self._loss_weights(self.loss_scale_for_epoch(epoch))
+        gen = self._eval_gen.manual_seed(1000 + epoch)
+        n, B = len(self.val_ds), self.batch_size
+        full = n // B
         keys = self._gen_restrict_keys()
-        losses, zs = [], []
-        gen_res = {k: ([], []) for k in keys}
-        for b, idx in enumerate(epoch_batches(len(self.val_ds), self.batch_size, None, drop_last=False)):
-            idx = torch.as_tensor(idx, device=self.device)
-            data = self.val_ds.batch(idx)
-            if self._dp is not None and len(idx) % self._dp.data == 0:
-                bl, mu = self.eval_step(
-                    self.state, pmesh.shard_batch(self._dp, idx), loss_scale, data=pmesh.shard_batch(self._dp, data),
-                    generator=gen, mesh=self._dp,
-                )
-            else:
-                # a ragged tail (or no data axis): the whole batch on every rank
-                bl, mu = self.eval_step(self.state, idx, loss_scale, data=data, generator=gen)
-            losses.append((bl, len(idx)))
-            zs.append(mu)
-            for key in keys:
-                pred, target = generative_restrictiveness_batch(
-                    self.model, mu, data, key, tree, norm_params=self.val_ds.norm_params,
-                    draw=None if draws is None else draws[key][b], generator=gen,
-                )
-                gen_res[key][0].append(pred)
-                gen_res[key][1].append(target)
+        zs, gen_res = [], {k: ([], []) for k in keys}
 
-        sums: Dict[str, float] = {}
-        for bl, nb in losses:
-            for k, v in bl.items():
-                sums[k] = sums.get(k, 0.0) + float(v) * nb
-        count = sum(nb for _, nb in losses)
-        metrics = {k: sums[k] / max(count, 1) for k in sorted(sums)}
+        def keep(mu, res):
+            zs.append(mu.clone())
+            for key, (pred, target) in res.items():
+                gen_res[key][0].append(pred.clone())
+                gen_res[key][1].append(target.clone())
+
+        def batch_draws(b):
+            return None if draws is None else {k: torch.as_tensor(draws[k][b]) for k in keys}
+
+        sums = self._eval_sums
+        for v in sums.values():
+            v.zero_()
+        rows = torch.arange(full * B, device=self.device).reshape(full, B)
+        if self.use_graphs and full:
+            self._graph_eval_rows(rows, weights, gen, sums, batch_draws, keep)
+        else:
+            for b, idx in enumerate(rows):
+                keep(*self._eval_batch(idx, weights, gen, sums, batch_draws(b)))
+        tail = {}
+        if full * B < n:
+            keep(*self._eval_batch(
+                torch.arange(full * B, n, device=self.device), weights, gen, tail, batch_draws(full)
+            ))
+        # summed in float64 on the host: the full batches' device sums, then the tail
+        full_sums, tail_sums = _to_host(sums) if full else {}, _to_host(tail)
+        metrics = {k: full_sums.get(k, 0.0) * B for k in sorted(set(full_sums) | set(tail_sums))}
+        for k, v in tail_sums.items():
+            metrics[k] += v * (n - full * B)
+        metrics = {k: v / max(n, 1) for k, v in metrics.items()}
         for key, (preds, targets) in gen_res.items():
             # summed in f32 on the host, as the JAX package does
             pred = torch.cat(preds).cpu().numpy()
@@ -338,6 +460,74 @@ class Trainer:
             ss_tot = ((target - target.mean(axis=0)) ** 2).sum()
             metrics[f"r2_gen_restrict_{key}"] = float(1.0 - ss_res / ss_tot)
         return metrics, torch.cat(zs).cpu().numpy() if zs else np.zeros((0,))
+
+    def _eval_batch(self, idx, weights, gen, sums, draw=None):
+        """One validation batch: its losses added into ``sums`` (each
+        created by its first batch), its mu and the generative-restrictiveness
+        (pred, target) of each conditioned factor. A batch that the data axis
+        divides is cut into this rank's rows; a ragged one runs whole on
+        every rank."""
+        data = self.val_ds.batch(idx)
+        if self._dp is not None and len(idx) % self._dp.data == 0:
+            bl, mu = self.eval_step(
+                self.state, pmesh.shard_batch(self._dp, idx), weights, data=pmesh.shard_batch(self._dp, data),
+                generator=gen, mesh=self._dp,
+            )
+        else:
+            bl, mu = self.eval_step(self.state, idx, weights, data=data, generator=gen)
+        for k, v in bl.items():
+            if k in sums:
+                sums[k].add_(v)
+            else:
+                sums[k] = v.clone()
+        res = {
+            key: generative_restrictiveness_batch(
+                self.model, mu, data, key, self.val_ds.kinematic_tree, norm_params=self.val_ds.norm_params,
+                draw=None if draw is None else draw[key], generator=gen,
+            )
+            for key in self._gen_restrict_keys()
+        }
+        return mu, res
+
+    def _graph_eval_rows(self, rows, weights, gen, sums, batch_draws, keep) -> None:
+        """The full validation batches ``rows``: the first eagerly, the
+        others as replays of the captured batch (captured again when what
+        it reads has moved or the draws switch between given and drawn)."""
+        given = batch_draws(0) is not None
+
+        def reads():
+            return (self.model, self.state, self.val_ds, self._eval_idx_buf, self._loss_vec, sums, self._draw_bufs)
+
+        def load(b):
+            self._eval_idx_buf.copy_(rows[b])
+            for k, d in (batch_draws(b) or {}).items():
+                self._draw_bufs[k].copy_(d)
+
+        def run():
+            return self._eval_batch(self._eval_idx_buf, weights, gen, sums, self._draw_bufs if given else None)
+
+        graph = self._eval_graph
+        if graph is not None and (self._eval_graph_given != given or not graph.valid(reads(), [gen])):
+            graph = self._eval_graph = None
+        if self._eval_idx_buf is None:
+            self._eval_idx_buf = torch.empty(rows.shape[1:], dtype=rows.dtype, device=self.device)
+        if given and set(self._draw_bufs) != set(batch_draws(0)):
+            graph = self._eval_graph = None
+            self._draw_bufs = {k: torch.empty_like(d, device=self.device) for k, d in batch_draws(0).items()}
+        first = 0
+        if graph is None:
+            load(0)
+            with no_host_sync():
+                keep(*warm_up(run))
+            first = 1
+            if len(rows) > 1:
+                graph = self._eval_graph = StepGraph(run, reads(), [gen])
+                self._eval_graph_given = given
+                self.graph_captures += 1
+        for b in range(first, len(rows)):
+            load(b)
+            graph.replay()
+            keep(*graph.out)
 
     @staticmethod
     def _fold_summary(out: Dict[str, float], name: str, folds) -> None:
