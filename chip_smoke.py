@@ -39,7 +39,9 @@ steps would give them (the graph phase holds the two equal).
    ``python -m scrubvae_torch.profile_step``'s line, eagerly and in a
    graph (20 steps each), for the flagship, ``configs/ladder/5_full.yaml``,
    ``configs/sane/4_full.yaml`` and the flagship's config with the
-   transformer.
+   transformer, each with its counted step's bytes and bound (required
+   > 0 and, the bound, at most the profiled device-busy time a step) and
+   its table by operator class in ``build/``.
 7. fit: the training entry point at full flagship width. A YAML config
    (the path phase's flagship, epochs 11 to 20 from ``model.start_epoch``
    10 with nothing loaded, validation from epoch 0, without
@@ -101,9 +103,14 @@ steps would give them (the graph phase holds the two equal).
 9. bench: ``scrubvae_torch.bench.run`` at its defaults, as ``python -m
    scrubvae_torch.bench`` runs it (the flagship of the path phase, batch
    512, bf16 storage, 5 warm-up and 100 timed steps of
-   ``Trainer.train_epoch``, one more step under the FLOP counter); its
-   JSON line is printed. Requires a finite total, 2 optimizer launches a
-   step and 0 < mfu <= 1.
+   ``Trainer.train_epoch``, one more step under the cost counter,
+   ``scrubvae_torch.utils.step_cost``); its JSON line is printed. Requires
+   a finite total, 2 optimizer launches a step, 0 < mfu <= 1,
+   ``gflops_per_step`` within 0.1% of ``FLAGSHIP_GFLOPS``,
+   ``bytes_per_step`` > 0 and 0 < ``bound_ms_per_step`` <= ``step_ms`` (a
+   bound above the measured time is an impossible reading), and the
+   counter's fused AdamW bytes equal to ``leaf_bytes`` over the flagship's
+   leaf table (one bench-built flagship's parameters and moments).
 10. x360: the x360 windows and the heading-free encoder view, then two
    shipped configs of that process. First ``materialize`` of every key
    (``raw_pose``, ``x6d_enc``, ``root_enc`` included) over the structured
@@ -312,8 +319,9 @@ steps would give them (the graph phase holds the two equal).
    of both runs above (over what was allocated when each run began), beside
    the card's name.
 
-Prints one JSON line describing the kernels, the card's name and power limit
-again, then, as its last line, the device record. Needs one CUDA GPU and
+Each phase logs its wall seconds ("phase NAME: S s"). Prints one JSON line
+describing the kernels, the card's name and power limit again, then, as its
+last line, the device record. Needs one CUDA GPU and
 ``nvcc``; exits non-zero without them.
 """
 
@@ -843,6 +851,12 @@ def profile_configs(steps: int = 20) -> dict:
                 rec = profile_step.run(profile_step.parse_args(args + flags))
                 out[f"{name} {label}"] = rec
                 log(f"profile_step {name} {label}: " + json.dumps(rec))
+                log((ROOT / rec["classes_table"]).read_text().rstrip())
+                if not (rec["bytes_per_step"] > 0 and 0 < rec["bound_ms_per_step"] <= rec["device_busy_ms_per_step"]):
+                    raise AssertionError(
+                        f"profile {name} {label}: bytes {rec['bytes_per_step']}, bound "
+                        f"{rec['bound_ms_per_step']} ms above the device's busy {rec['device_busy_ms_per_step']} ms"
+                    )
                 torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1642,15 +1656,25 @@ def full_phase(card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
+FLAGSHIP_GFLOPS = 468.47  # the flagship's counted step, 2*M*N*K
+
+
 def bench_phase() -> dict:
     """``scrubvae_torch.bench.run`` at its defaults (the flagship, batch 512,
     bf16 storage, 5 warm-up and 100 timed steps, one more step under the
-    FLOP counter); its JSON line, printed as ``python -m
+    cost counter); its JSON line, printed as ``python -m
     scrubvae_torch.bench`` prints it. Requires a finite total, 2 optimizer
-    launches a step and 0 < mfu <= 1."""
+    launches a step, 0 < mfu <= 1, the FLOPs within 0.1% of
+    ``FLAGSHIP_GFLOPS``, 0 < bound <= step time, and the counted fused
+    AdamW bytes equal to ``leaf_bytes`` over the flagship's table."""
     from scrubvae_torch import bench
     from scrubvae_torch.ops import fused_adamw as fa
 
+    trainer, _ = bench.build(16, 51, 128, bench.FULL_CH, DEVICE)  # the flagship's leaves, a small stream
+    params, mu = list(trainer.model.parameters()), trainer.state.opt_state.mu
+    table_bytes = sum(fa.leaf_bytes([p.shape], p.element_size(), m.element_size()) for p, m in zip(params, mu))
+    del trainer, params, mu
+    torch.cuda.empty_cache()
     args = bench.parse_args([])
     fa.fused_adamw_multi.launches = 0
     fa.fused_adamw_leaf.launches = 0
@@ -1662,7 +1686,23 @@ def bench_phase() -> dict:
         raise AssertionError(f"bench: {launches} optimizer launches in {steps} steps; expected 2 a step")
     if not 0.0 < out.get("mfu", 0.0) <= 1.0:
         raise AssertionError(f"bench: mfu {out.get('mfu')} outside (0, 1]")
-    return {**out, "optimizer_launches": launches, "launches_per_step": launches / steps}
+    if abs(out["gflops_per_step"] / FLAGSHIP_GFLOPS - 1.0) > 1e-3:
+        raise AssertionError(f"bench: {out['gflops_per_step']} GFLOP a step; expected {FLAGSHIP_GFLOPS} within 0.1%")
+    if not (out["bytes_per_step"] > 0 and 0.0 < out["bound_ms_per_step"] <= out["step_ms"]):
+        raise AssertionError(
+            f"bench: {out['bytes_per_step']} bytes, a bound of {out['bound_ms_per_step']} ms against a "
+            f"{out['step_ms']} ms step"
+        )
+    adamw = out["step_cost"]["fused AdamW"]
+    if (adamw["ops"], adamw["bytes"]) != (2, table_bytes):
+        raise AssertionError(
+            f"bench: the counter's fused AdamW {adamw['ops']} launches, {adamw['bytes']} bytes; "
+            f"expected 2 and the table's {table_bytes}"
+        )
+    log(f"bench: bound {out['bound_ms_per_step']:.3f} ms, {out['bound_ms_per_step'] / out['step_ms']:.4f} of the "
+        f"step; fused AdamW {adamw['bytes']} bytes = the table's leaf_bytes")
+    return {**out, "optimizer_launches": launches, "launches_per_step": launches / steps,
+            "adamw_table_bytes": table_bytes}
 
 
 # ---------------------------------------------------------------------------
@@ -4400,6 +4440,14 @@ def kernels_line(kernel: dict, path: dict, fit: dict, full: dict, bench: dict, x
     }]}
 
 
+def timed(name: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, its wall seconds logged as phase ``name``'s."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument(
@@ -4437,41 +4485,42 @@ def main() -> int:
         from scrubvae_torch import bench
 
         flagship = bench.build(512, 51, 128, bench.FULL_CH, DEVICE)
-    kernel = kernel_phase(flagship[0]) if "kernel" in phases else None
+    kernel = timed("kernel", kernel_phase, flagship[0]) if "kernel" in phases else None
     if "parity" in phases:
-        parity_phase()
+        timed("parity", parity_phase)
     path = None
     if "path" in phases or "profile" in phases:
-        path, rows, loss_scale = path_phase(*flagship)
+        path, rows, loss_scale = timed("path", path_phase, *flagship)
         if "profile" in phases:
             profile_phase(flagship[0], rows, loss_scale)
     flagship = None  # frees the path phase's trainer before the fit phase
     torch.cuda.empty_cache()
     if "profile" in phases:
-        profile_configs()
+        timed("profile", profile_configs)
     card = smi[0] if smi else "nvidia-smi: no output"
     analysis_tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_analysis_"))
     try:
-        fit = fit_phase(card, keep=analysis_tmp / "fit_run" if "analysis" in phases else None) if "fit" in phases else None
+        keep = analysis_tmp / "fit_run" if "analysis" in phases else None
+        fit = timed("fit", fit_phase, card, keep=keep) if "fit" in phases else None
         torch.cuda.empty_cache()
-        full = full_phase(card) if "full" in phases else None
+        full = timed("full", full_phase, card) if "full" in phases else None
         torch.cuda.empty_cache()
-        bench = bench_phase() if "bench" in phases else None
+        bench = timed("bench", bench_phase) if "bench" in phases else None
         torch.cuda.empty_cache()
-        x360 = x360_phase(card) if "x360" in phases else None
+        x360 = timed("x360", x360_phase, card) if "x360" in phases else None
         torch.cuda.empty_cache()
-        models = models_phase(card) if "models" in phases else None
+        models = timed("models", models_phase, card) if "models" in phases else None
         torch.cuda.empty_cache()
-        surface = surface_phase(card) if "surface" in phases else None
+        surface = timed("surface", surface_phase, card) if "surface" in phases else None
         torch.cuda.empty_cache()
         if "analysis" in phases:
-            analysis_phase(card, analysis_tmp)
+            timed("analysis", analysis_phase, card, analysis_tmp)
         torch.cuda.empty_cache()
-        serve = serve_phase(card) if "serve" in phases else None
+        serve = timed("serve", serve_phase, card) if "serve" in phases else None
         torch.cuda.empty_cache()
-        mesh = mesh_phase(card) if "mesh" in phases else None
+        mesh = timed("mesh", mesh_phase, card) if "mesh" in phases else None
         torch.cuda.empty_cache()
-        graph = graph_phase(card) if "graph" in phases else None
+        graph = timed("graph", graph_phase, card) if "graph" in phases else None
     finally:
         shutil.rmtree(analysis_tmp, ignore_errors=True)
     if kernel is not None and path is not None:

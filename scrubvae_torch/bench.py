@@ -41,15 +41,26 @@ between two synchronizes, and prints one JSON line:
   the model's ``leaves`` and ``parameters`` (a split leaf counted whole);
 - ``gflops_per_step`` and ``tflops_per_s``: the FLOPs of one more, untimed,
   step, taken eagerly (the graphs are released first: a replay passes no
-  operator through the counter), summed over the ranks, and their rate a
-  rank, counted by
-  ``torch.utils.flop_counter.FlopCounterMode``, 2*M*N*K for
-  every matrix product (mm, addmm, bmm, baddbmm) and every convolution,
-  forward and backward as autograd runs them (so the first convolution has
-  no input gradient), the 3x3 products of the forward kinematics included;
-  elementwise work, reductions, the small solves and the optimizer are not
-  counted. This is the convention of the JAX bench's ``mfu_static_hlo``
-  (2*M*N*K over the dot and convolution ops of the compiled step);
+  operator through the counter; a replay launches the eager step's
+  kernels, so the count holds for both), summed over the ranks, and their
+  rate a rank, counted by ``utils.step_cost.CostCounter`` with
+  ``torch.utils.flop_counter``'s formulas (``FlopCounterMode``'s total):
+  2*M*N*K for every matrix product (mm, addmm, bmm, baddbmm) and every
+  convolution, forward and backward as autograd runs them (so the first
+  convolution has no input gradient), the 3x3 products of the forward
+  kinematics included; elementwise work, reductions, the small solves and
+  the optimizer are not counted. This is the convention of the JAX bench's
+  ``mfu_static_hlo`` (2*M*N*K over the dot and convolution ops of the
+  compiled step);
+- ``bytes_per_step``, ``bytes_accessed_gb_per_s`` and ``bound_ms_per_step``
+  from the same count: the bytes every operator of the step reads and
+  writes (each input once, each output once; views none; the fused AdamW
+  kernel's ``leaf_bytes`` a launch), summed over the ranks, their rate a
+  rank (the JAX bench's name), and the step's least time on an H100 SXM,
+  the sum over its operators of ``max(FLOPs / peak, bytes / 3.35 TB/s)``,
+  the slowest rank's (``utils.step_cost`` says what it leaves out: cuDNN's
+  internal layout copies, so the bytes are a lower bound); ``step_cost``:
+  the count by operator class, rank 0's;
 - ``mfu``, ``peak_tflops`` and ``peak_hbm_gb_per_s``: that rate over the
   card's dense bf16 peak, from ``PEAKS`` keyed by the card's name; a card
   not in the table, or the CPU, gets none of the three.
@@ -210,12 +221,12 @@ def _sync(device: torch.device) -> None:
 
 def run(args) -> dict:
     """Build, warm up, time ``args.steps`` steps and count one more step's
-    FLOPs; returns the result record."""
+    FLOPs and bytes; returns the result record."""
     import torch.distributed as dist
-    from torch.utils.flop_counter import FlopCounterMode
 
     from scrubvae_torch.device import resolve_device
     from scrubvae_torch.parallel import mesh as pmesh
+    from scrubvae_torch.utils import step_cost
 
     device = resolve_device(args.device)
     ch = SMALL_CH if args.small else FULL_CH
@@ -242,19 +253,20 @@ def run(args) -> dict:
     if not math.isfinite(total):
         raise FloatingPointError(f"non-finite training loss in the bench run: {total}")
 
-    counter = FlopCounterMode(display=False)
     # an epoch of one row with no graph captured takes its step eagerly
     trainer.release_graphs()
-    with counter:
-        trainer.train_epoch(1, idx_matrix(1))
+    _, cost = step_cost.count(trainer.train_epoch, 1, idx_matrix(1))
     _sync(device)
-    flops = counter.get_total_flops()
+    flops, nbytes, bound_ms = cost.flops, cost.bytes, cost.bound_ms
     mesh = trainer.mesh
     ranks = 1 if mesh is None else mesh.data * mesh.model
     if ranks > 1:
-        total_flops = torch.tensor([float(flops)], dtype=torch.float64, device=device)
-        dist.all_reduce(total_flops)
-        flops = float(total_flops)
+        sums = torch.tensor([float(flops), float(nbytes)], dtype=torch.float64, device=device)
+        dist.all_reduce(sums)
+        flops, nbytes = (float(v) for v in sums)
+        slowest = torch.tensor([bound_ms], dtype=torch.float64, device=device)
+        dist.all_reduce(slowest, op=dist.ReduceOp.MAX)
+        bound_ms = float(slowest)
 
     step_s = dt / args.steps
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
@@ -279,6 +291,10 @@ def run(args) -> dict:
         "total": total,
         "gflops_per_step": flops / 1e9,
         "tflops_per_s": flops / step_s / ranks / 1e12,
+        "bytes_per_step": nbytes,
+        "bytes_accessed_gb_per_s": nbytes / step_s / ranks / 1e9,
+        "bound_ms_per_step": bound_ms,
+        "step_cost": cost.by_class(),
     }
     if args.host_stream:
         out["host_stream"] = True
@@ -292,10 +308,13 @@ def run(args) -> dict:
 
 def main(argv=None) -> None:
     from scrubvae_torch.train_model import _is_main, _join_process_group
+    from scrubvae_torch.utils.retry import with_backend_retry
 
     args = parse_args(argv)
-    _join_process_group(args.backend, args.device)
-    out = run(args)
+    # transient failures (a rendezvous timing out, nvcc killed) are retried
+    # with backoff, the same call on the same device; others exit non-zero
+    with_backend_retry(lambda: _join_process_group(args.backend, args.device), retries=2, base_delay=30.0)
+    out = with_backend_retry(lambda: run(args), retries=2, base_delay=30.0, reset_backend=True)
     if _is_main():
         print(json.dumps(out), flush=True)
 

@@ -31,13 +31,18 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from scrubvae_torch.utils import step_cost
+from scrubvae_torch.utils.retry import retry_build
+
 __all__ = [
     "BUILD_DIR",
     "CHUNK_ELEMS",
     "MAX_LEAVES",
+    "OPS_PER_ELEM",
     "SOURCE",
     "LeafTable",
     "build",
+    "drop_library",
     "fused_adamw_leaf",
     "fused_adamw_leaf_reference",
     "fused_adamw_multi",
@@ -59,6 +64,9 @@ NVCC_FLAGS = (
 # parameter struct holds (kMaxLeaves)
 CHUNK_ELEMS = 1024
 MAX_LEAVES = 256
+# f32 operations an element of one update, on the CUDA cores (its bound's
+# operation count; the bytes, ``leaf_bytes``, bound it)
+OPS_PER_ELEM = 20
 
 _lock = threading.Lock()
 _lib_handle = None
@@ -80,7 +88,9 @@ def build(force: bool = False) -> Path:
     """Compile ``csrc/fused_adamw.cu`` into a shared library (keyed by the
     source and flags) and return its path; reuse an existing build unless
     ``force``. The assembler's report (registers, spills of each kernel)
-    is kept beside it, with the suffix ``.ptxas.txt``."""
+    is kept beside it, with the suffix ``.ptxas.txt``. Raises "nvcc killed
+    by signal" where a signal ended ``nvcc`` (which ``utils.retry`` retries)
+    and "nvcc failed" where it rejected the source (which it does not)."""
     key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
     out = BUILD_DIR / f"fused_adamw_{key.hexdigest()[:16]}.so"
     if out.exists() and not force:
@@ -89,6 +99,8 @@ def build(force: bool = False) -> Path:
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
     res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode < 0:
+        raise RuntimeError(f"nvcc killed by signal {-res.returncode} ({' '.join(cmd)}):\n{res.stderr}")
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{res.stderr}")
     out.with_suffix(".ptxas.txt").write_text(res.stderr)
@@ -100,7 +112,7 @@ def _lib():
     global _lib_handle
     with _lock:
         if _lib_handle is None:
-            lib = ctypes.CDLL(str(build()))
+            lib = ctypes.CDLL(str(retry_build(build)))
             fn = lib.fused_adamw_multi_launch
             p, f = ctypes.c_void_p, ctypes.c_float
             fn.argtypes = [
@@ -114,6 +126,13 @@ def _lib():
             fn.restype = ctypes.c_int
             _lib_handle = lib
     return _lib_handle
+
+
+def drop_library() -> None:
+    """Forget the loaded library; the next launch loads the build again."""
+    global _lib_handle
+    with _lock:
+        _lib_handle = None
 
 
 # ---------------------------------------------------------------------------
@@ -362,6 +381,12 @@ class LeafTable:
                 chunks += batch_chunks
         self.chunks = torch.tensor(chunks, dtype=torch.int32).reshape(-1, 2).to(self.device)
         self.rows = torch.tensor(rows, dtype=torch.int64).to(self.device)
+        # (bytes, f32 operations) of each batch's launch, for a step's cost count
+        self.launch_costs = [
+            (leaf_bytes([self.w[i].shape for i in b.idx], 2 if b.w_bf16 else 4, 2 if b.m_bf16 else 4),
+             OPS_PER_ELEM * sum(self.numel[i] for i in b.idx))
+            for b in self.batches
+        ]
 
     def _check_leaf(self, i: int) -> None:
         w, mu, nu, nz = self.w[i], self.mu[i], self.nu[i], self.noise[i]
@@ -434,10 +459,17 @@ def _step_word(step, device: torch.device) -> torch.Tensor:
     return torch.full((), step & 0xFFFFFFFF, dtype=torch.int64, device=device).to(torch.int32)
 
 
-def _apply(table: LeafTable, grads, scal, *, b1, b2, eps, wd, seed, step) -> int:
+def _apply(table: LeafTable, grads, scal, **kw) -> int:
     """Update every leaf of ``table`` in place; returns the kernel launches
-    made (0 on the CPU, where the plain version runs)."""
+    made (0 on the CPU, where the plain version runs). An active
+    ``step_cost.CostCounter`` counts one launch a batch of the table on
+    either device."""
     _check_call(table, grads, scal)
+    with step_cost.kernel_launches("fused AdamW", table.launch_costs):
+        return _launch(table, grads, scal, **kw)
+
+
+def _launch(table: LeafTable, grads, scal, *, b1, b2, eps, wd, seed, step) -> int:
     if table.device.type == "cpu":
         lr, b1c, b2c, gscale = scal.unbind(0)
         outs = fused_adamw_multi_reference(

@@ -30,6 +30,19 @@ memory, and the top kernels by self device time. The profiler's whole
 table goes to ``build/profile_step_<label>.txt``. On the CPU there is no
 device: the device figures are null and the top entries are operators by
 self CPU time.
+
+Then one more step, taken eagerly (a captured graph is released first: a
+replay launches the eager step's kernels but passes no operator through a
+counter), is counted by ``utils.step_cost.CostCounter`` (the counterpart of
+the JAX package's ``tools/hlo_opclass.py`` and ``tools/hbm_bound.py``): the
+line gains the step's ``bytes_per_step`` and ``bound_ms_per_step`` (its
+least time on an H100 SXM), and the count by operator class (operators,
+GFLOP, MB, bound ms) goes to ``build/profile_step_<label>_classes.txt``.
+With ``--per-step`` on the card the table adds each class's device ms a
+step, the profiler's kernels summed under the operator that launched each
+(the fused AdamW kernel by its name; what no operator launched is
+"unattributed"). A graph's replays launch their kernels under no operator,
+so the graph's table says so and has no such column.
 """
 
 from __future__ import annotations
@@ -162,7 +175,56 @@ def profile(trainer, rows: np.ndarray, label: str) -> dict:
             ],
         )
     rec["table"] = str(out.relative_to(ROOT))
+    if cuda and not (trainer.scan_train and trainer.use_graphs):
+        rec["device_ms_by_class"] = device_ms_by_class(averages, busy_ms, steps)
     return rec
+
+
+def device_ms_by_class(averages, busy_ms: float, steps: int) -> dict:
+    """Device ms a step by ``step_cost`` class from a profile of eager
+    steps: each operator's self device time (the kernels it launched
+    itself) under its class, the fused AdamW kernel's under its own, the
+    rest of ``busy_ms`` as "unattributed"."""
+    from torch.autograd import DeviceType
+
+    from scrubvae_torch.utils.step_cost import op_class
+
+    out = {}
+    for e in averages:
+        if e.device_type == DeviceType.CUDA and "fused_adamw" in e.key:
+            cls = "fused AdamW"
+        elif e.device_type == DeviceType.CPU and e.key.startswith("aten::") and e.self_device_time_total:
+            packet = getattr(torch.ops.aten, e.key[len("aten::"):], None)
+            cls = op_class(getattr(packet, packet.overloads()[0])) if packet is not None else "other"
+        else:
+            continue
+        out[cls] = out.get(cls, 0.0) + e.self_device_time_total / 1e3
+    out["unattributed"] = busy_ms - sum(out.values())
+    return {k: v / steps for k, v in out.items()}
+
+
+def count_step(trainer, row: np.ndarray, label: str, device_ms=None) -> dict:
+    """One more eager step of ``row`` counted by ``step_cost.count``; its
+    bytes and bound, and the table by class (``device_ms``, a step's device
+    ms by class, as a column) in ``build/profile_step_<label>_classes.txt``."""
+    from scrubvae_torch.utils import step_cost
+
+    graph = trainer.scan_train and trainer.use_graphs
+    trainer.release_graphs()
+    _, cost = step_cost.count(trainer.train_epoch, 1, row[None])
+    if graph:
+        note = "device ms: not attributed (a CUDA graph's replays launch their kernels under no operator)"
+    elif device_ms is None:
+        note = "device ms: none (no device)"
+    else:
+        note = "device ms: the profiled eager steps' kernels, under the operator that launched each"
+    out = ROOT / "build" / f"profile_step_{label}_classes.txt"
+    out.write_text(
+        f"{label}: one eager step counted by scrubvae_torch.utils.step_cost "
+        "(bound: H100 SXM data sheet; cuDNN's internal layout copies not counted)\n"
+        + cost.table(device_ms, note)
+    )
+    return {"bytes_per_step": cost.bytes, "bound_ms_per_step": cost.bound_ms, "classes_table": str(out.relative_to(ROOT))}
 
 
 def parse_args(argv=None):
@@ -213,8 +275,10 @@ def run(args) -> dict:
     trainer.train_epoch(1, rng.integers(0, len(ds), (WARMUP_STEPS, B)))
     rec = {"config": args.config or "flagship", "path": path, "batch": B, "steps": args.steps,
            "device_kind": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"}
-    rec.update(profile(trainer, rng.integers(0, len(ds), (args.steps, B)), label))
+    rows = rng.integers(0, len(ds), (args.steps, B))
+    rec.update(profile(trainer, rows, label))
     rec["peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30 if device.type == "cuda" else None
+    rec.update(count_step(trainer, rows[0], label, rec.get("device_ms_by_class")))
     return rec
 
 

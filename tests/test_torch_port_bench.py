@@ -32,7 +32,7 @@ ROOT = Path(__file__).resolve().parent.parent
 SMALL = ["--small", "--device", "cpu", "--steps", "2", "--warmup", "1"]
 KEYS = (
     "metric", "value", "unit", "step_ms", "device_kind", "param_dtype", "sigma_head_rank",
-    "gflops_per_step", "tflops_per_s",
+    "gflops_per_step", "tflops_per_s", "bytes_per_step", "bytes_accessed_gb_per_s", "bound_ms_per_step",
 )
 
 

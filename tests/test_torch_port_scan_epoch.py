@@ -227,6 +227,6 @@ def test_profile_step_prints_every_key(capsys):
     assert set(rec) == {
         "config", "path", "batch", "steps", "device_kind", "wall_ms_per_step", "device_busy_ms_per_step",
         "device_idle_share", "kernel_launches_per_step", "copies_per_step", "fused_adamw_launches_per_step",
-        "top", "table", "peak_mem_gib",
+        "top", "table", "peak_mem_gib", "bytes_per_step", "bound_ms_per_step", "classes_table",
     }
     assert rec["path"] == "eager" and rec["steps"] == 2 and rec["top"] and rec["wall_ms_per_step"] > 0
