@@ -319,6 +319,23 @@ steps would give them (the graph phase holds the two equal).
    of both runs above (over what was allocated when each run began), beside
    the card's name.
 
+17. spans: the train step's spans (``scrubvae_torch.utils.profiling``,
+   the stamp kernel ``csrc/step_spans.cu``), with the stamp launches
+   counted from 0. Three steps' stamps (the gap's, then the step's order)
+   into a spans buffer on the card and one on the CPU: the same counts on
+   both, and on each the totals summing to the last stamp's time less the
+   first's, to the nanosecond; a ``torch.cuda._sleep`` of about 2 ms
+   between two stamps against CUDA events around it, within 20 us; the
+   stamp's device time (profiler, 200 stamps). Then the flagship at full
+   width (the bench's config, batch 512, bf16) in graph epochs of 20
+   steps: an untraced epoch of replays launches no stamp and makes one
+   host sync (``count_syncs``), its readback (``Trainer.host_syncs``);
+   tracing on captures again, and each traced epoch launches 10 stamps a
+   step; over a traced epoch of replays every slot is charged as often as
+   the step's order says, and the slots sum to between 97% and 100% of
+   the epoch's time between CUDA events; tracing off captures again and
+   launches no stamp. Prints the slots' ms a step.
+
 Each phase logs its wall seconds ("phase NAME: S s"). Prints one JSON line
 describing the kernels, the card's name and power limit again, then, as its
 last line, the device record. Needs one CUDA GPU and
@@ -349,6 +366,7 @@ ADAMW_FLOPS_PER_ELEM = 20
 ROOT = pathlib.Path(__file__).resolve().parent
 PHASES = (
     "kernel", "parity", "path", "fit", "full", "bench", "x360", "models", "surface", "analysis", "serve", "mesh", "graph",
+    "spans",
 )
 DEVICE = "cuda"
 
@@ -4324,6 +4342,127 @@ def graph_phase(card: str) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the train step's spans
+# ---------------------------------------------------------------------------
+
+SPANS_STEPS = 20  # the flagship's graph epochs
+SPANS_SLEEP_CYCLES = 4_000_000  # torch.cuda._sleep between two stamps: about 2 ms at 1980 MHz
+SPANS_SLEEP_TOL_MS = 0.02
+# one step's stamps after its first, in the step's order
+SPANS_ORDER = ("data", "encoder", "decoder", "scrub_forward", "losses", "scrub_forward", "backward", "optimizer",
+               "scrub_update")
+
+
+def stamp_checks() -> dict:
+    """The stamp kernel's bookkeeping against the CPU's, a known interval
+    against CUDA events, and the stamp's device time (phase 17)."""
+    from scrubvae_torch.utils import profiling
+
+    n = len(profiling.SLOTS)
+    counts = {}
+    for dev in (DEVICE, "cpu"):
+        spans = profiling.StepSpans(dev)
+        spans.start_epoch()
+        first = None
+        for _ in range(3):
+            for slot in ("replay_gap",) + SPANS_ORDER:
+                spans.stamp(slot)
+                if first is None:
+                    first = int(spans.buf[2 * n])
+        buf = spans.buf.cpu().tolist()
+        spans.take(buf[: 2 * n])
+        if min(buf[:n]) < 0 or sum(buf[:n]) != buf[2 * n] - first:
+            raise AssertionError(f"spans {dev}: totals {buf[:n]} from {first} to {buf[2 * n]}")
+        counts[dev] = spans.counts
+    want = {s: 3 * SPANS_ORDER.count(s) for s in profiling.SLOTS}
+    want["replay_gap"] = 2
+    if not counts[DEVICE] == counts["cpu"] == want:
+        raise AssertionError(f"spans: counts on the card {counts[DEVICE]}, on the CPU {counts['cpu']}, not {want}")
+    if profiling.launch_stamp.launches != 3 * (1 + len(SPANS_ORDER)):
+        raise AssertionError(f"spans: {profiling.launch_stamp.launches} stamp launches for 30 stamps")
+
+    spans = profiling.StepSpans(DEVICE)
+    spans.start_epoch()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPANS_SLEEP_CYCLES)  # the device busy while the host queues the rest
+    spans.stamp("data")
+    start.record()
+    torch.cuda._sleep(SPANS_SLEEP_CYCLES)
+    end.record()
+    spans.stamp("encoder")
+    torch.cuda.synchronize()
+    stamp_ms = int(spans.buf[profiling.SLOTS.index("encoder")]) / 1e6
+    event_ms = start.elapsed_time(end)
+    if event_ms < 1.0 or abs(stamp_ms - event_ms) > SPANS_SLEEP_TOL_MS:
+        raise AssertionError(f"spans: a sleep of {event_ms} ms between events read {stamp_ms} ms between stamps")
+    rec = {"counts": want, "sleep_ms_events": event_ms, "sleep_ms_stamps": stamp_ms,
+           "stamp_device_us": 1e3 * device_ms(lambda: spans.stamp("data"), iters=200)}
+    log("spans stamps: " + json.dumps(rec))
+    return rec
+
+
+def spans_phase(card: str) -> dict:
+    """The stamps, then the flagship's traced and untraced graph epochs
+    (phase 17)."""
+    from scrubvae_torch.utils import profiling
+
+    profiling.launch_stamp.launches = 0
+    stamps = stamp_checks()
+    profiling.launch_stamp.launches = 0
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_spans_"))
+    try:
+        trainer, ds = _graph_trainer(tmp, True, small=False)
+        rng = np.random.default_rng(17)
+
+        def epoch(e: int) -> None:
+            trainer.train_epoch(e, rng.integers(0, len(ds), (SPANS_STEPS, trainer.batch_size)))
+
+        def expect(what: str, got, want) -> None:
+            if got != want:
+                raise AssertionError(f"spans flagship: {what} {got}, not {want}")
+
+        epoch(1)  # captures the untraced step
+        syncs, replays = trainer.host_syncs, trainer.replays
+        with profiling.count_syncs(DEVICE) as counted:
+            epoch(2)
+        expect("an untraced epoch's host syncs and readbacks", (counted.n, trainer.host_syncs - syncs), (1, 1))
+        expect("an untraced epoch's replays", trainer.replays - replays, SPANS_STEPS)
+        expect("an untraced epoch's stamps", profiling.launch_stamp.launches, 0)
+        captures = trainer.graph_captures
+        trainer.set_tracing(True)
+        epoch(2)  # captures the traced step
+        expect("captures after tracing on", trainer.graph_captures, captures + 1)
+        expect("the recapturing epoch's stamps", profiling.launch_stamp.launches, 10 * SPANS_STEPS)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        epoch(2)
+        end.record()
+        torch.cuda.synchronize()
+        expect("two traced epochs' stamps", profiling.launch_stamp.launches, 2 * 10 * SPANS_STEPS)
+        want = {s: SPANS_STEPS * SPANS_ORDER.count(s) for s in profiling.SLOTS}
+        want["replay_gap"] = SPANS_STEPS - 1
+        expect("a traced epoch's charges", trainer.spans.counts, want)
+        slots_ms = sum(trainer.spans.totals_ns.values()) / 1e6
+        epoch_ms = start.elapsed_time(end)
+        if not 0.97 * epoch_ms <= slots_ms <= epoch_ms:
+            raise AssertionError(f"spans flagship: the slots sum to {slots_ms} ms in an epoch of {epoch_ms} ms")
+        ms = trainer.spans.ms_per_step()
+        trainer.set_tracing(False)
+        epoch(2)
+        expect("captures after tracing off", trainer.graph_captures, captures + 2)
+        expect("stamps after tracing off", profiling.launch_stamp.launches, 2 * 10 * SPANS_STEPS)
+        trainer.release_graphs()
+        del trainer, ds
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = {"stamps": stamps, "slot_ms_per_step": ms, "slots_ms": slots_ms, "epoch_ms": epoch_ms,
+           "steps": SPANS_STEPS}
+    log(f"spans phase ({card}): " + json.dumps(rec))
+    return rec
+
+
 def kernels_line(kernel: dict, path: dict, fit: dict, full: dict, bench: dict, x360: dict, models: dict,
                  surface: dict = None, serve: dict = None, mesh: dict = None, graph: dict = None) -> dict:
     """One record per kernel of the main path: its launches on the path run
@@ -4521,6 +4660,9 @@ def main() -> int:
         mesh = timed("mesh", mesh_phase, card) if "mesh" in phases else None
         torch.cuda.empty_cache()
         graph = timed("graph", graph_phase, card) if "graph" in phases else None
+        torch.cuda.empty_cache()
+        if "spans" in phases:
+            timed("spans", spans_phase, card)
     finally:
         shutil.rmtree(analysis_tmp, ignore_errors=True)
     if kernel is not None and path is not None:

@@ -1,0 +1,40 @@
+// Span stamps of the train step, for Hopper (sm_90a).
+//
+// Replaces no TPU kernel: the JAX package's step is one XLA program whose
+// layers a trace names by their ops, while a CUDA graph replay of the
+// port's step shows the profiler kernels with no layer attached. A stamp
+// is recorded where the step passes from one layer to the next
+// (utils/profiling.py names the slots); captured in the step's graph it
+// becomes a node, so every replay stamps with no host work.
+//
+// One stamp, one thread: read the GPU's %globaltimer (nanoseconds), add the
+// time since the previous stamp to its slot's total and count it, then
+// record its own time. The buffer is int64, 2 * n_slots + 1 words: the
+// slots' totals, their counts, the time of the last stamp. A last time of
+// 0 (the epoch's start, written by the host) charges nothing. The step's
+// kernels run in order on one stream, so a stamp starts when everything
+// before it has ended, and the intervals split the step.
+//
+// What bounds it: the launch itself, about as long as any kernel's least
+// time on the card; it moves 32 bytes. The design keeps it one thread of
+// one block, no atomics (stamps on one stream never overlap) and nothing
+// the host waits for.
+
+#include <cuda_runtime.h>
+
+__global__ void span_stamp_kernel(long long* buf, int n_slots, int slot) {
+  unsigned long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  long long* last = buf + 2 * n_slots;
+  long long prev = *last;
+  if (prev != 0) {
+    buf[slot] += (long long)now - prev;
+    buf[n_slots + slot] += 1;
+  }
+  *last = (long long)now;
+}
+
+extern "C" int span_stamp_launch(void* buf, int n_slots, int slot, void* stream) {
+  span_stamp_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((long long*)buf, n_slots, slot);
+  return (int)cudaGetLastError();
+}

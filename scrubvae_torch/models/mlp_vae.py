@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from scrubvae_torch.models.base import PoseVAE
 from scrubvae_torch.models.layers import CholeskyL, Linear
+from scrubvae_torch.utils.profiling import stamp
 
 __all__ = ["MLPVAE"]
 
@@ -71,6 +72,7 @@ class MLPVAE(PoseVAE):
     def decode(
         self, z: torch.Tensor, data: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None
     ) -> Dict[str, torch.Tensor]:
+        stamp("encoder")  # a traced train step's encoder ends here (utils.profiling)
         out: Dict[str, torch.Tensor] = {}
         var = self.build_conditionals(data)
         if var is not None:

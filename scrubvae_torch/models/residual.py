@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from scrubvae_torch.models.base import PoseVAE
+from scrubvae_torch.utils.profiling import stamp
 from scrubvae_torch.parallel.mesh import current_rows, gather_rows, shard_batch
 from scrubvae_torch.models.layers import (
     CholeskyL,
@@ -240,6 +241,7 @@ class ResVAE(PoseVAE):
     def decode(
         self, z: torch.Tensor, data: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None
     ) -> Dict[str, torch.Tensor]:
+        stamp("encoder")  # a traced train step's encoder ends here (utils.profiling)
         out: Dict[str, torch.Tensor] = {}
         var = self.build_conditionals(data)
         if var is not None:

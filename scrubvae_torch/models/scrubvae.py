@@ -11,6 +11,7 @@ import torch
 from torch import nn
 
 from scrubvae_torch.models.scrubbers import GRScrubber, LinearProjection
+from scrubvae_torch.utils.profiling import stamp
 
 __all__ = ["ScrubVAE"]
 
@@ -48,8 +49,10 @@ class ScrubVAE(nn.Module):
     ) -> Dict:
         """The VAE's output (``models/base.py``; ``generator`` draws its
         dropout masks in training mode) and, under ``disentangle``, each
-        scrubber head's."""
+        scrubber head's. A traced train step stamps the end of the VAE's
+        forward and of the heads (``utils.profiling``)."""
         out = self.vae(data, eps=eps, mu_only=mu_only, generator=generator)
+        stamp("decoder")
         dis: Dict[str, Dict] = {}
         if len(self.linear):
             dis["linear"] = {k: m(out["mu"]) for k, m in self.linear.items()}
@@ -59,4 +62,5 @@ class ScrubVAE(nn.Module):
                 for k, m in self.grad_reversal.items()
             }
         out["disentangle"] = dis
+        stamp("scrub_forward")
         return out

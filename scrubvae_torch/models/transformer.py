@@ -38,6 +38,7 @@ from torch import nn
 from scrubvae_torch.models.base import PoseVAE
 from scrubvae_torch.models.layers import CholeskyL, Linear, lecun_normal_
 from scrubvae_torch.parallel.mesh import current_rows, shard_batch
+from scrubvae_torch.utils.profiling import stamp
 
 __all__ = [
     "sinusoidal_positions",
@@ -300,6 +301,7 @@ class TransformerVAE(PoseVAE):
     def decode(
         self, z: torch.Tensor, data: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None
     ) -> Dict[str, torch.Tensor]:
+        stamp("encoder")  # a traced train step's encoder ends here (utils.profiling)
         out: Dict[str, torch.Tensor] = {}
         var = self.build_conditionals(data)
         if var is not None:

@@ -4,7 +4,8 @@ its plain PyTorch version.
 Counterpart of ``scrubvae_tpu/ops/fused_adamw.py`` (``fused_adamw_leaf`` /
 ``leaf_update_reference``). The kernel is ``csrc/fused_adamw.cu``, built with
 ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at first use and bound with
-ctypes; the source says what it computes and what bounds it.
+ctypes (``utils.cuda_build``); the source says what it computes and what
+bounds it.
 
 ``LeafTable`` describes a fixed list of leaves (w, mu, nu) once; then
 ``fused_adamw_multi`` updates all of them in place with one kernel launch
@@ -21,28 +22,22 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 from pathlib import Path
 from typing import List, Optional, Sequence
 
 import torch
 
 from scrubvae_torch.utils import step_cost
-from scrubvae_torch.utils.retry import retry_build
+from scrubvae_torch.utils.cuda_build import CudaLibrary
 
 __all__ = [
-    "BUILD_DIR",
     "CHUNK_ELEMS",
     "MAX_LEAVES",
     "OPS_PER_ELEM",
     "SOURCE",
+    "LIBRARY",
     "LeafTable",
     "build",
-    "drop_library",
     "fused_adamw_leaf",
     "fused_adamw_leaf_reference",
     "fused_adamw_multi",
@@ -54,12 +49,6 @@ __all__ = [
 ]
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "fused_adamw.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 # the kernel's chunk (kThreads * kGroup) and the most gradient pointers its
 # parameter struct holds (kMaxLeaves)
 CHUNK_ELEMS = 1024
@@ -68,71 +57,28 @@ MAX_LEAVES = 256
 # operation count; the bytes, ``leaf_bytes``, bound it)
 OPS_PER_ELEM = 20
 
-_lock = threading.Lock()
-_lib_handle = None
+
+def _bind(lib: ctypes.CDLL) -> None:
+    fn = lib.fused_adamw_multi_launch
+    p, f = ctypes.c_void_p, ctypes.c_float
+    fn.argtypes = [
+        p, p, ctypes.c_int,  # leaves chunks n_chunks
+        p, ctypes.c_int,  # grads (host array) n_leaves
+        ctypes.c_int, ctypes.c_int, p,  # w_bf16 m_bf16 scal
+        f, f, f, f, f, f,  # b1 1-b1 b2 1-b2 eps wd
+        ctypes.c_uint64, p, ctypes.c_int64,  # seed step (device int32) chunk_elems
+        p,  # stream
+    ]
+    fn.restype = ctypes.c_int
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    for home in (os.environ.get("CUDA_HOME"), CUDA_HOME):
-        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
-            return os.path.join(home, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return found
+LIBRARY = CudaLibrary(SOURCE, _bind)
 
 
 def build(force: bool = False) -> Path:
-    """Compile ``csrc/fused_adamw.cu`` into a shared library (keyed by the
-    source and flags) and return its path; reuse an existing build unless
-    ``force``. The assembler's report (registers, spills of each kernel)
-    is kept beside it, with the suffix ``.ptxas.txt``. Raises "nvcc killed
-    by signal" where a signal ended ``nvcc`` (which ``utils.retry`` retries)
-    and "nvcc failed" where it rejected the source (which it does not)."""
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"fused_adamw_{key.hexdigest()[:16]}.so"
-    if out.exists() and not force:
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode < 0:
-        raise RuntimeError(f"nvcc killed by signal {-res.returncode} ({' '.join(cmd)}):\n{res.stderr}")
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{res.stderr}")
-    out.with_suffix(".ptxas.txt").write_text(res.stderr)
-    os.replace(tmp, out)
-    return out
-
-
-def _lib():
-    global _lib_handle
-    with _lock:
-        if _lib_handle is None:
-            lib = ctypes.CDLL(str(retry_build(build)))
-            fn = lib.fused_adamw_multi_launch
-            p, f = ctypes.c_void_p, ctypes.c_float
-            fn.argtypes = [
-                p, p, ctypes.c_int,  # leaves chunks n_chunks
-                p, ctypes.c_int,  # grads (host array) n_leaves
-                ctypes.c_int, ctypes.c_int, p,  # w_bf16 m_bf16 scal
-                f, f, f, f, f, f,  # b1 1-b1 b2 1-b2 eps wd
-                ctypes.c_uint64, p, ctypes.c_int64,  # seed step (device int32) chunk_elems
-                p,  # stream
-            ]
-            fn.restype = ctypes.c_int
-            _lib_handle = lib
-    return _lib_handle
-
-
-def drop_library() -> None:
-    """Forget the loaded library; the next launch loads the build again."""
-    global _lib_handle
-    with _lock:
-        _lib_handle = None
+    """Compile ``csrc/fused_adamw.cu`` (``CudaLibrary.build``) and return
+    the shared library's path."""
+    return LIBRARY.build(force)
 
 
 # ---------------------------------------------------------------------------
@@ -483,7 +429,7 @@ def _launch(table: LeafTable, grads, scal, *, b1, b2, eps, wd, seed, step) -> in
         return 0
     if table.device.type != "cuda":
         raise RuntimeError(f"fused_adamw: no kernel for device {table.device}")
-    fn = _lib().fused_adamw_multi_launch
+    fn = LIBRARY.load().fused_adamw_multi_launch
     stream = torch.cuda.current_stream(table.device).cuda_stream
     step = _step_word(step, table.device)
     rows, chunks = table.rows.data_ptr(), table.chunks.data_ptr()

@@ -31,6 +31,14 @@ table goes to ``build/profile_step_<label>.txt``. On the CPU there is no
 device: the device figures are null and the top entries are operators by
 self CPU time.
 
+Without ``--per-step`` the line also gives ``slot_ms_per_step``, each
+layer's ms a step from the program's own spans (``utils.profiling``):
+two more epochs of the same rows with ``Trainer.set_tracing`` on, the
+first capturing the traced step, the second read (on the card, device ms
+over the graph's replays; on the CPU, the host's clock). A replay launches
+its kernels under no operator, so these spans stand in for the class
+table's device column there.
+
 Then one more step, taken eagerly (a captured graph is released first: a
 replay launches the eager step's kernels but passes no operator through a
 counter), is counted by ``utils.step_cost.CostCounter`` (the counterpart of
@@ -42,7 +50,8 @@ With ``--per-step`` on the card the table adds each class's device ms a
 step, the profiler's kernels summed under the operator that launched each
 (the fused AdamW kernel by its name; what no operator launched is
 "unattributed"). A graph's replays launch their kernels under no operator,
-so the graph's table says so and has no such column.
+so the graph's table says so, names ``slot_ms_per_step`` in its stead and
+has no such column.
 """
 
 from __future__ import annotations
@@ -55,7 +64,7 @@ import time
 import numpy as np
 import torch
 
-__all__ = ["build_from_config", "main", "parse_args", "profile", "run"]
+__all__ = ["build_from_config", "main", "parse_args", "profile", "run", "slot_ms"]
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 WARMUP_STEPS = 3
@@ -180,6 +189,18 @@ def profile(trainer, rows: np.ndarray, label: str) -> dict:
     return rec
 
 
+def slot_ms(trainer, rows: np.ndarray) -> dict:
+    """Each span slot's ms a step over a traced epoch of ``rows``, after
+    another that captures the traced step (the module docstring)."""
+    trainer.set_tracing(True)
+    try:
+        for _ in range(2):
+            trainer.train_epoch(1, rows)
+    finally:
+        trainer.set_tracing(False)
+    return trainer.spans.ms_per_step()
+
+
 def device_ms_by_class(averages, busy_ms: float, steps: int) -> dict:
     """Device ms a step by ``step_cost`` class from a profile of eager
     steps: each operator's self device time (the kernels it launched
@@ -213,7 +234,8 @@ def count_step(trainer, row: np.ndarray, label: str, device_ms=None) -> dict:
     trainer.release_graphs()
     _, cost = step_cost.count(trainer.train_epoch, 1, row[None])
     if graph:
-        note = "device ms: not attributed (a CUDA graph's replays launch their kernels under no operator)"
+        note = ("device ms: not attributed (a CUDA graph's replays launch their kernels under no operator; "
+                "the line's slot_ms_per_step gives them by layer)")
     elif device_ms is None:
         note = "device ms: none (no device)"
     else:
@@ -278,6 +300,8 @@ def run(args) -> dict:
     rows = rng.integers(0, len(ds), (args.steps, B))
     rec.update(profile(trainer, rows, label))
     rec["peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30 if device.type == "cuda" else None
+    if trainer.scan_train:
+        rec["slot_ms_per_step"] = slot_ms(trainer, rows)
     rec.update(count_step(trainer, rows[0], label, rec.get("device_ms_by_class")))
     return rec
 

@@ -29,6 +29,7 @@ from scrubvae_torch.models.layers import packed_to_L
 from scrubvae_torch.ops import losses as L
 from scrubvae_torch.ops.kinematics import KinematicTree
 from scrubvae_torch.parallel.mesh import data_parallel, gather_rows, global_value, reduce_sum
+from scrubvae_torch.utils.profiling import stamp
 
 __all__ = ["compute_batch_loss"]
 
@@ -87,6 +88,7 @@ def compute_batch_loss(
         per_row("jpe", L.mpjpe_loss(data["target_pose"], data_o["x6d"], tree, data["offsets"], batch=divisor))
     if "root" in loss_scale:
         per_row("root", L.mse_sum(data_o["root"], data["root"]) / batch_size)
+    stamp("losses")  # a traced train step's reconstruction and prior terms end here
     if "mcmi" in loss_scale:
         if mi_state is not None:
             # valid is 0 until the estimator's first refresh
@@ -173,4 +175,5 @@ def compute_batch_loss(
         # rounded to the term's dtype, as a Python float weight is
         total = total + (w.to(v.dtype) if isinstance(w, torch.Tensor) else w) * v
     bl["total"] = total
+    stamp("scrub_forward")
     return bl, new_state

@@ -20,7 +20,12 @@ captures (``train.graph``, ``Trainer.train_epoch`` under
 ``train.scan_epoch``): every state tensor the step produces lands in the
 tensor it came from, the loss weights and the window indices are read from
 device buffers and the metrics are summed on the device; it equals the
-train step bit for bit on any device."""
+train step bit for bit on any device.
+
+A traced step (``Trainer.set_tracing``; ``utils.profiling``) stamps where
+it passes from one layer to the next: the in-place step's entry and end,
+the batch's assembly, the backward and the optimizer here, the rest in the
+model and the losses. Elsewhere a stamp does nothing."""
 
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from scrubvae_torch.models.layers import packed_diag
 from scrubvae_torch.parallel.mesh import data_parallel, gather_rows, reduce_sum, shard_batch, step_rows
 from scrubvae_torch.train.losses import compute_batch_loss
 from scrubvae_torch.train.state import TrainState, tree_map
+from scrubvae_torch.utils.profiling import stamp
 
 __all__ = [
     "feature_slices", "draw_adv_perms", "encode_mi_state", "make_train_step", "land_state", "make_inplace_step",
@@ -116,6 +122,7 @@ def _loss_and_grads(
 
     def run(state: TrainState, idx, loss_scale, eps, perms, generator: torch.Generator):
         data = batch_fn(idx)
+        stamp("data")
         B = data["x6d"].shape[0] * (dp.data if dp else 1)
         # the beta prior draws its gamma variates in the forward, from the
         # same generator
@@ -137,6 +144,7 @@ def _loss_and_grads(
         grads = torch.autograd.grad(bl["total"], params, allow_unused=True)
         if dp is not None:
             grads = reduce_sum(grads, dp.data_group)
+        stamp("backward")
         return data, out, bl, new_scrub, grads, perms
 
     return run
@@ -184,6 +192,7 @@ def make_train_step(
     def step(state: TrainState, idx, loss_scale: Dict[str, float], eps: Optional[torch.Tensor] = None, perms=None):
         data, out, bl, new_scrub, grads, perms = run(state, idx, loss_scale, eps, perms, state.generator)
         opt_state = tx.update_and_apply(grads, state.opt_state, params)
+        stamp("optimizer")
         mu_det = gather_rows(out["mu"].detach(), dp)
         for method, update in STREAMING_UPDATES.items():
             for k, st in new_scrub.get(method, {}).items():
@@ -243,6 +252,7 @@ def make_inplace_step(step: Callable) -> Callable:
     what ``step`` computes bit for bit."""
 
     def inplace(state: TrainState, idx, loss_scale: Dict[str, torch.Tensor], sums: Dict[str, torch.Tensor]):
+        stamp("replay_gap")
         new_state, metrics = step(state, idx, loss_scale)
         state = land_state(state, new_state)
         for k, v in metrics.items():
@@ -250,6 +260,7 @@ def make_inplace_step(step: Callable) -> Callable:
                 sums[k].add_(v)
             else:
                 sums[k] = v.clone()
+        stamp("scrub_update")
         return state
 
     return inplace

@@ -41,6 +41,18 @@ cannot hold, and NCCL capture is not done yet. ``train.donate`` is
 accepted and has no effect (steps update parameters, moments and
 statistics in place, so nothing is left to donate).
 
+Tracing. ``set_tracing(True)`` makes the train steps stamp their layers
+(``utils.profiling``: on the card a kernel a stamp, which a captured graph
+keeps as a node); the epoch's totals come back in its one readback, and
+``spans.ms_per_step()`` gives each slot's time a step. Switching it
+captures the train step again, so the untraced graph holds no stamp. The
+host phases of a train epoch are profiler ranges (``host_span``) while a
+profiler runs. Always kept: ``graph_captures`` (switching the tracing
+counts as one), ``replays`` and ``host_syncs`` (every readback of the
+train and validation epochs). The host does not wait for the uploads of
+an epoch's loss weights and indices, so a train epoch's one host sync is
+its readback.
+
 ``train.mesh`` (``{data: D, model: M}``, an int, ``true`` or -1: see
 ``parallel.mesh.make_mesh``) trains over the ranks of the default process
 group, one process a rank (``torchrun --nproc_per_node N -m
@@ -92,17 +104,11 @@ from scrubvae_torch.train.step import (
 )
 from scrubvae_torch.utils import checkpoint as ckpt
 from scrubvae_torch.utils.logging import MetricLogger
+from scrubvae_torch.utils.profiling import StepSpans, host_span, stamping
 
 __all__ = ["Trainer", "train"]
 
 GEN_RESTRICT_KEYS = ("heading", "avg_speed_3d")
-
-
-def _to_host(sums: Dict[str, torch.Tensor]) -> Dict[str, float]:
-    """The device scalars of ``sums`` as floats, sorted by key, read in
-    one copy."""
-    keys = sorted(sums)
-    return dict(zip(keys, torch.stack([sums[k].double() for k in keys]).tolist())) if keys else {}
 
 
 class Trainer:
@@ -235,6 +241,10 @@ class Trainer:
         self._train_graph_before = None  # the state the captured train step was given
         self._eval_graph_given = False  # whether the captured eval batch reads given draws
         self.graph_captures = 0  # captures of the train and eval steps so far
+        self.replays = 0
+        self.host_syncs = 0
+        self.tracing = False
+        self.spans = StepSpans(self.device)
         self._eval_gen = torch.Generator(device=self.device)
         self.is_main = self.mesh is None or self.mesh.is_main
         self.logger = (
@@ -266,6 +276,42 @@ class Trainer:
                 "card, e.g. torchrun --nproc_per_node N -m scrubvae_torch.train_model ..."
             )
         return pmesh.make_mesh(spec)
+
+    def set_tracing(self, on: bool) -> None:
+        """Trace the train steps (the module docstring) or stop; a captured
+        train step of the other kind is dropped, to be captured again."""
+        on = bool(on)
+        if on != self.tracing and self._train_graph is not None:
+            self._train_graph = None
+        self.tracing = on
+
+    def _step(self, state, idx, weights, sums):
+        """The in-place train step, stamping its layers while tracing."""
+        if not self.tracing:
+            return self.inplace_step(state, idx, weights, sums)
+        with stamping(self.spans):
+            return self.inplace_step(state, idx, weights, sums)
+
+    def _to_host(self, sums: Dict[str, torch.Tensor], spans: Optional[StepSpans] = None) -> Dict[str, float]:
+        """The device scalars of ``sums`` as floats, sorted by key, and the
+        totals of ``spans`` (``StepSpans.take``), read in one copy: one
+        host sync, none where there is nothing to read."""
+        keys = sorted(sums)
+        parts = ([torch.stack([sums[k].double() for k in keys])] if keys else []) + (
+            [spans.sums.double()] if spans is not None else []
+        )
+        if not parts:
+            return {}
+        values = torch.cat(parts).tolist()
+        self.host_syncs += 1
+        if spans is not None:
+            spans.take(values[len(keys):])
+        return dict(zip(keys, values[: len(keys)]))
+
+    def _fetch(self, t: torch.Tensor) -> np.ndarray:
+        """``t`` read to the host as a numpy array (one host sync)."""
+        self.host_syncs += 1
+        return t.cpu().numpy()
 
     def make_grad_fn(self):
         """The pre-optimizer view of the train step (``make_grad_step``):
@@ -303,7 +349,8 @@ class Trainer:
         ``train.scan_epoch`` as replays of a captured step (the module
         docstring); returns the mean of each loss term, read from the
         device once."""
-        weights = self._loss_weights(self.loss_scale_for_epoch(epoch))
+        with host_span("train.loss_weights"):
+            weights = self._loss_weights(self.loss_scale_for_epoch(epoch))
         if idx_matrix is None:
             idx_matrix = epoch_index_matrix(len(self.train_ds), self.batch_size, self.np_rng)
         idx_matrix = np.asarray(idx_matrix)
@@ -312,19 +359,25 @@ class Trainer:
                 self.train_ds.epoch_slabs(idx_matrix), size=2, device=self.device, stats=self.stream_stats,
             )
         else:
-            feed = torch.as_tensor(pmesh.shard_batch(self._dp, idx_matrix, axis=1), device=self.device)
+            with host_span("train.index_upload"):
+                rows = torch.as_tensor(pmesh.shard_batch(self._dp, idx_matrix, axis=1))
+                feed = rows.to(self.device, non_blocking=True)  # staged from pageable memory: no wait
         sums = self._train_sums
         for v in sums.values():
             v.zero_()
+        if self.tracing:
+            self.spans.start_epoch()
         with self._epoch_linalg():
             if self.scan_train and self.use_graphs:
                 self._graph_train_rows(feed, weights, sums)
             else:
-                for batch in feed:
-                    self.state = self.inplace_step(self.state, batch, weights, sums)
+                with host_span("train.steps"):
+                    for batch in feed:
+                        self.state = self._step(self.state, batch, weights, sums)
         n = max(len(idx_matrix), 1)
-        # sorted, as the JAX package's jitted steps return their dicts
-        return {k: v / n for k, v in _to_host(sums).items()}
+        with host_span("train.readback"):
+            # sorted, as the JAX package's jitted steps return their dicts
+            return {k: v / n for k, v in self._to_host(sums, self.spans if self.tracing else None).items()}
 
     def _loss_weights(self, loss_scale: Dict[str, float]) -> Dict[str, torch.Tensor]:
         """``loss_scale`` written into the float64 device buffer that the
@@ -332,7 +385,9 @@ class Trainer:
         keys = sorted(loss_scale)
         if self._loss_vec is None or self._loss_vec.numel() != len(keys):
             self._loss_vec = torch.zeros(len(keys), dtype=torch.float64, device=self.device)
-        self._loss_vec.copy_(torch.tensor([float(loss_scale[k]) for k in keys], dtype=torch.float64))
+        # staged from pageable memory before the call returns: the host waits for nothing
+        scales = torch.tensor([float(loss_scale[k]) for k in keys], dtype=torch.float64)
+        self._loss_vec.copy_(scales, non_blocking=True)
         return {k: self._loss_vec[i] for i, k in enumerate(keys)}
 
     def _generators(self) -> list:
@@ -350,27 +405,32 @@ class Trainer:
             return (self.model, self.state, self.train_ds, self._idx_buf, self._loss_vec, sums)
 
         graph = self._train_graph
-        if graph is not None and not graph.valid(reads(), self._generators()):
-            graph = self._train_graph = None
+        if graph is not None:
+            with host_span("train.graph_valid"):
+                if not graph.valid(reads(), self._generators()):
+                    graph = self._train_graph = None
         if self._idx_buf is None or self._idx_buf.shape != rows.shape[1:]:
             graph = self._train_graph = None
             self._idx_buf = torch.empty(rows.shape[1:], dtype=rows.dtype, device=self.device)
         first = 0
         if graph is None:
-            self._idx_buf.copy_(rows[0])
-            with no_host_sync():
-                self.state = warm_up(lambda: self.inplace_step(self.state, self._idx_buf, weights, sums))
-            first = 1
-            if len(rows) > 1:
-                before = self.state
-                graph = self._train_graph = StepGraph(
-                    lambda: self.inplace_step(before, self._idx_buf, weights, sums), reads(), self._generators()
-                )
-                self._train_graph_before = before
-                self.graph_captures += 1
-        for r in rows[first:]:
-            self._idx_buf.copy_(r)
-            graph.replay()
+            with host_span("train.capture"):
+                self._idx_buf.copy_(rows[0])
+                with no_host_sync():
+                    self.state = warm_up(lambda: self._step(self.state, self._idx_buf, weights, sums))
+                first = 1
+                if len(rows) > 1:
+                    before = self.state
+                    graph = self._train_graph = StepGraph(
+                        lambda: self._step(before, self._idx_buf, weights, sums), reads(), self._generators()
+                    )
+                    self._train_graph_before = before
+                    self.graph_captures += 1
+        with host_span("train.replays"):
+            for r in rows[first:]:
+                self._idx_buf.copy_(r)
+                graph.replay()
+        self.replays += len(rows) - first
         if len(rows) > first:
             self.state = advance_counts(self.state, self._train_graph_before, graph.out, len(rows) - first)
 
@@ -447,19 +507,19 @@ class Trainer:
                 torch.arange(full * B, n, device=self.device), weights, gen, tail, batch_draws(full)
             ))
         # summed in float64 on the host: the full batches' device sums, then the tail
-        full_sums, tail_sums = _to_host(sums) if full else {}, _to_host(tail)
+        full_sums, tail_sums = self._to_host(sums) if full else {}, self._to_host(tail)
         metrics = {k: full_sums.get(k, 0.0) * B for k in sorted(set(full_sums) | set(tail_sums))}
         for k, v in tail_sums.items():
             metrics[k] += v * (n - full * B)
         metrics = {k: v / max(n, 1) for k, v in metrics.items()}
         for key, (preds, targets) in gen_res.items():
             # summed in f32 on the host, as the JAX package does
-            pred = torch.cat(preds).cpu().numpy()
-            target = torch.cat(targets).cpu().numpy()
+            pred = self._fetch(torch.cat(preds))
+            target = self._fetch(torch.cat(targets))
             ss_res = ((target - pred) ** 2).sum()
             ss_tot = ((target - target.mean(axis=0)) ** 2).sum()
             metrics[f"r2_gen_restrict_{key}"] = float(1.0 - ss_res / ss_tot)
-        return metrics, torch.cat(zs).cpu().numpy() if zs else np.zeros((0,))
+        return metrics, self._fetch(torch.cat(zs)) if zs else np.zeros((0,))
 
     def _eval_batch(self, idx, weights, gen, sums, draw=None):
         """One validation batch: its losses added into ``sums`` (each
@@ -528,6 +588,7 @@ class Trainer:
             load(b)
             graph.replay()
             keep(*graph.out)
+        self.replays += len(rows) - first
 
     @staticmethod
     def _fold_summary(out: Dict[str, float], name: str, folds) -> None:

@@ -1,22 +1,75 @@
-"""Tracing, timing and a NaN tripwire (counterpart of
+"""Tracing and a NaN tripwire (counterpart of
 ``scrubvae_tpu/utils/profiling.py``): a ``torch.profiler`` Chrome trace of a
-block, a wall-clock step timer, an opt-in scoped check that raises on the
-first NaN an operation produces (forward and backward), and per-device
-memory statistics.
+block, the train step's spans and the epoch's host spans, an opt-in scoped
+check that raises on the first NaN an operation produces (forward and
+backward), and per-device memory statistics.
+
+Step spans. A traced train step (``Trainer.set_tracing``) stamps where it
+passes from one layer to the next; each stamp charges the time since the
+previous one to its slot (``SLOTS``), so the stamps split the step:
+
+- ``data``: the batch's assembly (``batch_fn``);
+- ``encoder``: to the decoder's entry (pose input, encoder, Cholesky head,
+  the sample);
+- ``decoder``: to the end of the VAE's forward;
+- ``scrub_forward``: the scrubber heads of the model's forward, and the
+  losses from ``mcmi`` to ``total`` (MCMI, every scrubber's term, total
+  correlation);
+- ``losses``: rotation, prior, jpe and root;
+- ``backward``: the gradients;
+- ``optimizer``: the update, the clip included;
+- ``scrub_update``: the streaming scrubbers' updates, the discriminators'
+  inner fit, the MCMI rebuild, and landing the state and the sums;
+- ``replay_gap``: from a step's last stamp to the next step's first, in
+  one epoch.
+
+On the card a stamp is a one-thread kernel (``csrc/step_spans.cu``) that
+reads the GPU's ``%globaltimer``; captured in a CUDA graph it is a node of
+the graph, so replays stamp with no host work. On the CPU it adds
+``time.perf_counter_ns()`` deltas into a CPU buffer. Stamps fire only
+inside ``stamping``; elsewhere ``stamp`` does nothing.
+
+Host spans. ``host_span`` names a phase of the host's epoch
+(``torch.profiler.record_function``) while a profiler runs, and is nothing
+otherwise.
+
+Host syncs. ``count_syncs`` counts the operations of a block that make the
+host wait for a CUDA device (torch's sync debug mode: a readback, a copy
+from pageable memory that waits, a ``.item()``), whatever code runs them.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import time
+import warnings
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
-__all__ = ["trace", "StepTimer", "debug_nans", "device_memory_stats"]
+from scrubvae_torch.utils.cuda_build import CudaLibrary
+
+__all__ = [
+    "SLOTS", "STAMP_LIBRARY", "StepSpans", "SyncCount", "count_syncs", "debug_nans", "device_memory_stats",
+    "host_span", "launch_stamp", "stamp", "stamping", "trace",
+]
+
+SLOTS = ("data", "encoder", "decoder", "scrub_forward", "losses", "backward", "optimizer", "scrub_update",
+         "replay_gap")
+STAMP_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "step_spans.cu"
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    fn = lib.span_stamp_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # buf n_slots slot stream
+    fn.restype = ctypes.c_int
+
+
+STAMP_LIBRARY = CudaLibrary(STAMP_SOURCE, _bind)
 
 
 @contextlib.contextmanager
@@ -38,27 +91,138 @@ def trace(log_dir: str = "./build/trace"):
     prof.export_chrome_trace(str(out))
 
 
-class StepTimer:
-    """Wall-clock step/epoch timing with steady-state rate reporting."""
+def launch_stamp(buf: torch.Tensor, slot: int) -> None:
+    """One stamp kernel into ``buf`` (``StepSpans.buf``) for slot index
+    ``slot``, on the current stream. ``launches`` counts the launches; one
+    recorded while a CUDA graph is captured counts once for each replay
+    (``train.graph.StepGraph``), not at the capture."""
+    if buf.device.type != "cuda" or buf.dtype != torch.int64 or buf.shape != (2 * len(SLOTS) + 1,):
+        raise ValueError(f"launch_stamp: buf must be {2 * len(SLOTS) + 1} int64 words on a CUDA device")
+    if not 0 <= slot < len(SLOTS):
+        raise ValueError(f"launch_stamp: no slot {slot}")
+    stream = torch.cuda.current_stream(buf.device).cuda_stream
+    err = STAMP_LIBRARY.load().span_stamp_launch(buf.data_ptr(), len(SLOTS), slot, stream)
+    if err != 0:
+        raise RuntimeError(f"span stamp kernel launch failed: cudaError {err}")
+    launch_stamp.launches += 1
 
-    def __init__(self):
-        self.t0: Optional[float] = None
-        self.steps = 0
 
-    def start(self):
-        self.t0 = time.perf_counter()
-        self.steps = 0
+launch_stamp.launches = 0
 
-    def tick(self, n: int = 1):
-        self.steps += n
+
+class StepSpans:
+    """The train step's spans on ``device``: ``buf`` holds each slot's
+    total in nanoseconds, each slot's count of charges, and the time of the
+    last stamp (int64, ``2 * len(SLOTS) + 1``); ``totals_ns`` and
+    ``counts`` are the last readback's."""
+
+    def __init__(self, device):
+        self.buf = torch.zeros(2 * len(SLOTS) + 1, dtype=torch.int64, device=device)
+        self.totals_ns: Dict[str, int] = {}
+        self.counts: Dict[str, int] = {}
+
+    def start_epoch(self) -> None:
+        """Zero the totals, the counts and the last time (a fill on the
+        current stream: the host waits for nothing), so the epoch's first
+        stamp charges nothing."""
+        self.buf.zero_()
+
+    def stamp(self, slot: str) -> None:
+        """Charge the time since the previous stamp to ``slot``."""
+        i = SLOTS.index(slot)
+        if self.buf.is_cuda:
+            launch_stamp(self.buf, i)
+            return
+        now, n = time.perf_counter_ns(), len(SLOTS)
+        prev = int(self.buf[2 * n])
+        if prev:
+            self.buf[i] += now - prev
+            self.buf[n + i] += 1
+        self.buf[2 * n] = now
 
     @property
-    def elapsed(self) -> float:
-        return time.perf_counter() - (self.t0 or time.perf_counter())
+    def sums(self) -> torch.Tensor:
+        """The totals and counts: what the epoch's readback carries."""
+        return self.buf[: 2 * len(SLOTS)]
 
-    def rate(self, per: int = 1) -> float:
-        e = self.elapsed
-        return (self.steps * per) / e if e > 0 else 0.0
+    def take(self, values: Sequence[float]) -> None:
+        """Keep the readback's values of ``sums``."""
+        n = len(SLOTS)
+        self.totals_ns = {s: int(values[i]) for i, s in enumerate(SLOTS)}
+        self.counts = {s: int(values[n + i]) for i, s in enumerate(SLOTS)}
+
+    def ms_per_step(self) -> Dict[str, Optional[float]]:
+        """Each slot's milliseconds a step over the last read epoch: its
+        total over the steps (the charges of ``data``, one a step), and
+        ``replay_gap``'s over the gaps; None where nothing was charged."""
+        steps = self.counts.get("data", 0)
+        out = {}
+        for s in SLOTS:
+            count = self.counts.get(s, 0) if s == "replay_gap" else steps
+            out[s] = self.totals_ns.get(s, 0) / count / 1e6 if count else None
+        return out
+
+
+_active: Optional[StepSpans] = None
+
+
+def stamp(slot: str) -> None:
+    """Charge the time since the previous stamp to ``slot`` of the spans
+    that ``stamping`` made active; nothing outside it."""
+    if _active is not None:
+        _active.stamp(slot)
+
+
+@contextlib.contextmanager
+def stamping(spans: StepSpans):
+    """Make ``spans`` the one that ``stamp`` charges while the block runs."""
+    global _active
+    prev, _active = _active, spans
+    try:
+        yield
+    finally:
+        _active = prev
+
+
+def host_span(name: str):
+    """``torch.profiler.record_function(name)`` while a profiler runs; a
+    context that does nothing otherwise."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
+
+
+# the warning torch's sync debug mode gives for each synchronizing CUDA operation
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+class SyncCount:
+    """What ``count_syncs`` counted: ``n`` host syncs, None off the card."""
+
+    n: Optional[int] = None
+
+
+@contextlib.contextmanager
+def count_syncs(device):
+    """Count the block's host syncs on a CUDA ``device`` (the module
+    docstring) into the yielded ``SyncCount``; off the card nothing is
+    counted. Other warnings of the block are passed on after it."""
+    out = SyncCount()
+    if torch.device(device).type != "cuda":
+        yield out
+        return
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield out
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    out.n = sum(SYNC_WARNING in str(w.message) for w in seen)
+    for w in seen:
+        if SYNC_WARNING not in str(w.message):
+            warnings.warn_explicit(w.message, w.category, w.filename, w.lineno)
 
 
 class _NanCheck(TorchDispatchMode):

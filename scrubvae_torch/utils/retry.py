@@ -66,13 +66,13 @@ def is_transient_backend_error(exc: BaseException) -> bool:
 
 
 def _reset_backend() -> None:
-    """Drop the fused AdamW kernel's library handle (the next call loads
-    the build again) and return the caching allocator's free blocks."""
+    """Drop the kernels' library handles (the next call loads each build
+    again) and return the caching allocator's free blocks."""
     import torch
 
-    from scrubvae_torch.ops import fused_adamw
+    from scrubvae_torch.utils import cuda_build
 
-    fused_adamw.drop_library()
+    cuda_build.drop_all()
     if torch.cuda.is_initialized():
         torch.cuda.empty_cache()
 

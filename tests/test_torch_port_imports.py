@@ -24,7 +24,7 @@ def test_importing_every_module_pulls_in_no_jax():
         "data.hoststream", "preprocess_data", "evals.cluster", "evals.traverse", "plot", "plot.plot",
         "plot.eval", "plot.pose_viz", "plot.constants", "utils.profiling", "models.mi",
         "utils.export", "utils.torch_export", "utils.torch_import", "export_model", "serve_bench", "export_torch",
-        "parallel", "parallel.mesh", "utils.step_cost", "utils.retry",
+        "parallel", "parallel.mesh", "utils.step_cost", "utils.retry", "utils.cuda_build",
     ):
         assert "scrubvae_torch." + m in mods, m
     code = (

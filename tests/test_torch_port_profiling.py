@@ -1,6 +1,6 @@
 """The port's profiling utilities (``scrubvae_torch/utils/profiling.py``)
-on the CPU: ``StepTimer`` as the JAX package's, ``trace`` writing a Chrome
-trace, ``debug_nans`` raising on a NaN planted in the forward and in the
+on the CPU: the JAX package's ``StepTimer`` (the port has none), ``trace``
+writing a Chrome trace, ``debug_nans`` raising on a NaN planted in the forward and in the
 backward pass and leaving no state behind, and ``device_memory_stats``
 empty without a GPU."""
 
@@ -15,7 +15,7 @@ from scrubvae_tpu.utils.profiling import StepTimer as JaxStepTimer
 from scrubvae_torch.utils import profiling
 
 
-@pytest.mark.parametrize("cls", [profiling.StepTimer, JaxStepTimer], ids=["port", "jax"])
+@pytest.mark.parametrize("cls", [JaxStepTimer], ids=["jax"])
 def test_step_timer(cls):
     timer = cls()
     assert abs(timer.elapsed) < 1e-3 and timer.rate() == 0.0

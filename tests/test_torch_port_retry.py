@@ -11,6 +11,7 @@ import pytest
 
 from scrubvae_tpu.utils import retry as jax_retry
 from scrubvae_torch.ops import fused_adamw as fa
+from scrubvae_torch.utils import cuda_build, profiling
 from scrubvae_torch.utils import retry as retry_mod
 from scrubvae_torch.utils.retry import is_transient_backend_error, retry_build, with_backend_retry
 
@@ -137,18 +138,19 @@ def test_backend_reset_runs_between_attempts(monkeypatch):
 
 
 def test_reset_drops_the_kernel_library(monkeypatch):
-    """The reset itself: the kernel's library handle is forgotten (the next
-    launch loads the build again); nothing else changes on the CPU."""
-    monkeypatch.setattr(fa, "_lib_handle", object())
+    """The reset itself: every kernel's library handle is forgotten (the
+    next launch loads the build again); nothing else changes on the CPU."""
+    monkeypatch.setattr(fa.LIBRARY, "handle", object())
+    monkeypatch.setattr(profiling.STAMP_LIBRARY, "handle", object())
     retry_mod._reset_backend()
-    assert fa._lib_handle is None
+    assert fa.LIBRARY.handle is None and profiling.STAMP_LIBRARY.handle is None
 
 
 @pytest.fixture
 def fake_nvcc(monkeypatch, tmp_path):
-    """``fused_adamw.build`` into ``tmp_path`` with ``subprocess.run``
-    answering from ``codes`` (a return code a call: 0 writes the output
-    file as nvcc would)."""
+    """``fused_adamw.build`` (``utils.cuda_build``) into ``tmp_path`` with
+    ``subprocess.run`` answering from ``codes`` (a return code a call: 0
+    writes the output file as nvcc would)."""
     codes, calls = [], []
 
     def run(cmd, **kw):
@@ -158,9 +160,9 @@ def fake_nvcc(monkeypatch, tmp_path):
             open(cmd[cmd.index("-o") + 1], "wb").close()
         return subprocess.CompletedProcess(cmd, rc, "", "ptxas info: 0 bytes stack frame" if rc == 0 else "error")
 
-    monkeypatch.setattr(fa, "BUILD_DIR", tmp_path)
-    monkeypatch.setattr(fa, "_nvcc", lambda: "nvcc")
-    monkeypatch.setattr(fa.subprocess, "run", run)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(cuda_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(cuda_build.subprocess, "run", run)
     return codes, calls
 
 
@@ -168,7 +170,7 @@ def test_retry_build_retries_nvcc_killed_by_a_signal(fake_nvcc, capsys):
     codes, calls = fake_nvcc
     codes += [-9, 0]
     out = retry_build(lambda: fa.build(force=True), sleep=_no_sleep)
-    assert out.exists() and out.parent == fa.BUILD_DIR and len(calls) == 2
+    assert out.exists() and out.parent == cuda_build.BUILD_DIR and len(calls) == 2
     assert "nvcc killed by signal 9" in capsys.readouterr().err
 
 

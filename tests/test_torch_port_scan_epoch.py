@@ -27,6 +27,7 @@ from scrubvae_torch.train import optim
 from scrubvae_torch.train.graph import storage
 from scrubvae_torch.train.step import land_state
 from scrubvae_torch.train.trainer import Trainer
+from scrubvae_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -227,6 +228,8 @@ def test_profile_step_prints_every_key(capsys):
     assert set(rec) == {
         "config", "path", "batch", "steps", "device_kind", "wall_ms_per_step", "device_busy_ms_per_step",
         "device_idle_share", "kernel_launches_per_step", "copies_per_step", "fused_adamw_launches_per_step",
-        "top", "table", "peak_mem_gib", "bytes_per_step", "bound_ms_per_step", "classes_table",
+        "top", "table", "peak_mem_gib", "bytes_per_step", "bound_ms_per_step", "classes_table", "slot_ms_per_step",
     }
     assert rec["path"] == "eager" and rec["steps"] == 2 and rec["top"] and rec["wall_ms_per_step"] > 0
+    # the CPU's stamps: every layer of a step, the one gap between its two steps
+    assert all(rec["slot_ms_per_step"][s] > 0 for s in profiling.SLOTS)
