@@ -336,6 +336,25 @@ steps would give them (the graph phase holds the two equal).
    the epoch's time between CUDA events; tracing off captures again and
    launches no stamp. Prints the slots' ms a step.
 
+18. solves: the scrubbers' SPD solves (``scrubvae_torch.ops.smallsolve``,
+   one Cholesky factor, no row swaps) under ``graph.capturable_linalg``.
+   First full5's QDA likelihoods (4 classes of 128x128 covariances moved
+   from the identity by ``qda_update``, batch 512; ``qda_loss`` and its
+   gradient in the latent) and MALS's solve (``mals_forward``, both systems
+   in one call) captured in a CUDA graph: no host sync in the warm-up, the
+   capture and a replay (``count_syncs``), and the replay bitwise equal to
+   the eager call. Then the device time (profiler) of the likelihoods'
+   chain, forward and forward with backward, beside the pivoted LU route
+   of ``torch.linalg.solve`` and ``slogdet`` on the same inputs, the
+   yardstick that the port does not call; ``cholesky_solve`` beside two
+   triangular solves, and MALS's batched call beside two calls. Then the
+   ``full5.b512`` cell as the benchmark sets it up (``benchmark.run``):
+   the kernels of one replayed step (torch.profiler) hold no pivoted LU
+   (no ``laswp``, no ``getrf`` but cuSOLVER's unpivoted ``getrf_wo_pivot``,
+   which its Cholesky factor runs: the kernels of each factor's shape are
+   listed), and over its warm epoch and window ``spd_not_pd``
+   stays 0 with 19 factorizations a step (16 QDA, 2 MALS, 1 projection).
+
 Each phase logs its wall seconds ("phase NAME: S s"). Prints one JSON line
 describing the kernels, the card's name and power limit again, then, as its
 last line, the device record. Needs one CUDA GPU and
@@ -366,7 +385,7 @@ ADAMW_FLOPS_PER_ELEM = 20
 ROOT = pathlib.Path(__file__).resolve().parent
 PHASES = (
     "kernel", "parity", "path", "fit", "full", "bench", "x360", "models", "surface", "analysis", "serve", "mesh", "graph",
-    "spans",
+    "spans", "solves",
 )
 DEVICE = "cuda"
 
@@ -4463,6 +4482,210 @@ def spans_phase(card: str) -> dict:
     return rec
 
 
+SOLVES_C, SOLVES_D, SOLVES_B = 4, 128, 512  # full5's QDA on ids: 4 classes, z 128, batch 512
+SOLVES_CELL, SOLVES_SEED = "full5.b512", 1_718_281_828
+SOLVES_PER_STEP = 4 * SOLVES_C + 2 + 1  # full5's factorizations a step: QDA's 4C, MALS's 2, the projection's 1
+SOLVES_PROFILED_STEPS = 3
+FACTOR_SHAPES = ((16, 128, 128), (2, 128, 128), (3, 3))  # QDA's, MALS's and the projection's factors
+
+
+def pivoted_lu(name: str) -> bool:
+    """Whether a kernel's name is a pivoted LU's: its row swaps (``laswp``)
+    or a ``getrf`` other than cuSOLVER's unpivoted one (``getrf_wo_pivot``,
+    which its Cholesky factor runs)."""
+    name = name.lower()
+    return "laswp" in name or ("getrf" in name and "wo_pivot" not in name)
+
+
+def kernel_names(fn) -> list:
+    """The names of the kernels one call of ``fn`` launches (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted(e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+
+
+def _solve_inputs(gen):
+    """A QDA state of full5's shape moved from the identity by five
+    ``qda_update`` calls, a MALS state of z 128 after five updates, and a
+    batch of latents and labels."""
+    from scrubvae_torch.models import scrubbers as scr
+
+    C, D, B = SOLVES_C, SOLVES_D, SOLVES_B
+    mix = torch.randn(D, D, generator=gen, device=DEVICE) / math.sqrt(D)
+    shift = torch.randn(C, D, generator=gen, device=DEVICE)
+
+    def batch():
+        y = torch.randint(0, C, (B,), generator=gen, device=DEVICE)
+        return torch.randn(B, D, generator=gen, device=DEVICE) @ mix + shift[y], y
+
+    qda = scr.qda_init(D, torch.arange(C, device=DEVICE), device=DEVICE)
+    mals = scr.mals_init(D, 1, device=DEVICE)
+    for _ in range(5):
+        x, y = batch()
+        qda = scr.qda_update(qda, x, y)
+        mals = scr.mals_update(mals, x, x[:, :1] + 0.1 * torch.randn(B, 1, generator=gen, device=DEVICE))
+    x, y = batch()
+    return qda, mals, x, y
+
+
+def solves_capture(qda, mals, x, y) -> dict:
+    """The QDA likelihoods with their gradient in ``x`` and MALS's solve,
+    captured: no host sync, a replay bitwise equal to the eager call."""
+    from scrubvae_torch.models import scrubbers as scr
+    from scrubvae_torch.train.graph import side_stream, warm_up
+    from scrubvae_torch.utils.profiling import count_syncs
+
+    xg = x.clone().requires_grad_(True)
+
+    def step():
+        loss, _ = scr.qda_loss(qda, xg, y)
+        (gx,) = torch.autograd.grad(loss, [xg])
+        return [loss.detach(), gx, *scr.mals_forward(mals, x)]
+
+    with count_syncs(DEVICE) as warm_syncs:
+        eager = [t.clone() for t in warm_up(step)]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side_stream()):  # a host sync inside would end the capture with an error
+        out = step()
+    with count_syncs(DEVICE) as replay_syncs:
+        graph.replay()
+    torch.cuda.synchronize()
+    if (warm_syncs.n, replay_syncs.n) != (0, 0):
+        raise AssertionError(f"solves: {warm_syncs.n} host syncs in the eager call, {replay_syncs.n} in the replay")
+    same = [bits_equal(a, b) for a, b in zip(out, eager)]
+    if not all(same):
+        raise AssertionError(f"solves: the replay differs from the eager call in outputs {same}")
+    del graph
+    return {"host_syncs": warm_syncs.n + replay_syncs.n, "replay_bitwise": True}
+
+
+def solves_timings(qda, mals, x, y) -> dict:
+    """Device ms (profiler) of the QDA likelihoods' Cholesky chain beside
+    the pivoted LU route, and of the factor-solve and MALS variants."""
+    from scrubvae_torch.models import scrubbers as scr
+    from scrubvae_torch.ops import smallsolve as ss
+
+    m = torch.cat([qda.m0a, qda.m1a, qda.m0b, qda.m1b])
+    S = torch.cat([qda.S0a, qda.S1a, qda.S0b, qda.S1b])
+    xg = x.clone().requires_grad_(True)
+
+    def lu_cgll(xx):
+        diff = xx[None] - m[:, None]
+        sol = torch.linalg.solve(S, diff.transpose(-1, -2))
+        return -0.5 * (torch.linalg.slogdet(S)[1][:, None] + torch.einsum("cbd,cdb->cb", diff, sol))
+
+    def with_grad(fn):
+        return lambda: torch.autograd.grad(fn(xg).sum(), [xg])
+
+    new, lib = scr._cgll(x, m, S), lu_cgll(x)
+    rel = float((new - lib).abs().max() / lib.abs().max())
+    A = torch.stack([mals.Sxx0, mals.Sxx1])
+    Bm = torch.stack([mals.Sxy0, mals.Sxy1])
+    L = ss.spd_factor(A)
+    Lq = ss.spd_factor(S)
+    rhs = x.T.expand(S.shape[0], -1, -1).contiguous()
+
+    def two_trsm(LL, BB):
+        half = torch.linalg.solve_triangular(LL, BB, upper=False)
+        return torch.linalg.solve_triangular(LL.mT, half, upper=True)
+
+    def spd(shape):
+        a = torch.randn(*shape, generator=torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE)
+        return a @ a.mT + shape[-1] * torch.eye(shape[-1], device=DEVICE)
+
+    rec = {
+        "factor_kernels": {"x".join(map(str, sh)): kernel_names(lambda a=spd(sh): ss.spd_factor(a))
+                           for sh in FACTOR_SHAPES},
+        "qda_rel_diff_lu": rel,
+        "qda_forward_ms": device_ms(lambda: scr._cgll(x, m, S)),
+        "qda_forward_library_ms": device_ms(lambda: lu_cgll(x)),
+        "qda_fwd_bwd_ms": device_ms(with_grad(lambda xx: scr._cgll(xx, m, S))),
+        "qda_fwd_bwd_library_ms": device_ms(with_grad(lu_cgll)),
+        "factor_16x128_ms": device_ms(lambda: ss.spd_factor(S)),
+        "cholesky_solve_16x128x512_ms": device_ms(lambda: torch.cholesky_solve(rhs, Lq)),
+        "two_trsm_16x128x512_ms": device_ms(lambda: two_trsm(Lq, rhs)),
+        "cholesky_solve_2x128x1_ms": device_ms(lambda: torch.cholesky_solve(Bm, L)),
+        "two_trsm_2x128x1_ms": device_ms(lambda: two_trsm(L, Bm)),
+        "mals_batched_ms": device_ms(lambda: ss.spd_solve(A, Bm)),
+        "mals_two_calls_ms": device_ms(lambda: (ss.spd_solve(A[0], Bm[0]), ss.spd_solve(A[1], Bm[1]))),
+        "mals_library_ms": device_ms(lambda: torch.linalg.solve(A, Bm)),
+        "mals_forward_ms": device_ms(lambda: scr.mals_forward(mals, x)),
+    }
+    return rec
+
+
+def solves_cell() -> dict:
+    """The ``full5.b512`` cell as the benchmark sets it up: the kernels of
+    one replayed step, then its warm epochs and window with the solve
+    counts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark import run as brun
+
+    su = brun.set_up(SOLVES_CELL, SOLVES_SEED, DEVICE)
+    trainer, ds = su.trainer, su.ds
+    seconds = 40.0
+    epochs = brun.warm_epochs(SOLVES_CELL, seconds) + brun.window_epochs(SOLVES_CELL, seconds)
+    before_f, before_n = trainer.spd_factorizations, trainer.spd_not_pd
+    steps0 = trainer.state.step
+    t0 = time.perf_counter()
+    for e in range(1, epochs + 1):
+        trainer.train_epoch(e)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    steps = trainer.state.step - steps0
+    per_step, not_pd = (trainer.spd_factorizations - before_f) / steps, trainer.spd_not_pd - before_n
+    rows = np.random.default_rng(SOLVES_SEED).integers(0, len(ds), (SOLVES_PROFILED_STEPS, trainer.batch_size))
+    replays = trainer.replays
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.train_epoch(epochs + 1, rows)
+        torch.cuda.synchronize()
+    if trainer.replays - replays != SOLVES_PROFILED_STEPS:
+        raise AssertionError(f"solves {SOLVES_CELL}: {trainer.replays - replays} replays in the profiled epoch")
+    kernels = {e.key: e.self_device_time_total / 1e3 / SOLVES_PROFILED_STEPS
+               for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+    lu = sorted(k for k in kernels if pivoted_lu(k))
+    solver = {k: v for k, v in kernels.items()
+              if any(n in k.lower() for n in ("potr", "trsm", "chol", "laswp", "getr", "trsv"))}
+    rec = {
+        "cell": SOLVES_CELL, "seed": SOLVES_SEED, "epochs": epochs, "steps": steps, "run_s": run_s,
+        "spd_factorizations_per_step": per_step, "spd_not_pd": not_pd,
+        "kernel_names_per_step": len(kernels), "lu_kernels": lu,
+        "solver_kernels_ms_per_step": solver,
+    }
+    trainer.release_graphs()
+    del trainer, ds, su
+    torch.cuda.empty_cache()
+    log("solves cell: " + json.dumps(rec))
+    if lu:
+        raise AssertionError(f"solves {SOLVES_CELL}: LU kernels in a replayed step: {lu}")
+    if rec["spd_not_pd"] != 0 or rec["spd_factorizations_per_step"] != SOLVES_PER_STEP:
+        raise AssertionError(f"solves {SOLVES_CELL}: counts {rec}")
+    return rec
+
+
+def solves_phase(card: str) -> dict:
+    """The solves captured and timed, then full5's cell (phase 18)."""
+    from scrubvae_torch.train.graph import capturable_linalg
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SOLVES_SEED)
+    with capturable_linalg():
+        inputs = _solve_inputs(gen)
+        rec = {"capture": solves_capture(*inputs), "timings": solves_timings(*inputs)}
+    del inputs
+    log("solves timings: " + json.dumps(rec))
+    rec["cell"] = solves_cell()
+    log(f"solves phase ({card}): " + json.dumps(rec))
+    return rec
+
+
 def kernels_line(kernel: dict, path: dict, fit: dict, full: dict, bench: dict, x360: dict, models: dict,
                  surface: dict = None, serve: dict = None, mesh: dict = None, graph: dict = None) -> dict:
     """One record per kernel of the main path: its launches on the path run
@@ -4663,6 +4886,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         if "spans" in phases:
             timed("spans", spans_phase, card)
+        torch.cuda.empty_cache()
+        if "solves" in phases:
+            timed("solves", solves_phase, card)
     finally:
         shutil.rmtree(analysis_tmp, ignore_errors=True)
     if kernel is not None and path is not None:

@@ -29,7 +29,7 @@ from torch import nn
 
 from scrubvae_torch.device import device_constant, trace_safe_cache
 from scrubvae_torch.models.layers import Linear, lecun_normal_
-from scrubvae_torch.ops.smallsolve import spd_slogdet, spd_solve
+from scrubvae_torch.ops.smallsolve import factor_logdet, spd_factor, spd_solve
 
 __all__ = [
     "grad_reverse",
@@ -232,8 +232,9 @@ def mals_forward(state: MALSState, x: torch.Tensor):
     l2 = torch.full((x.shape[1],), state.l2_reg, dtype=x.dtype, device=x.device)
     if state.bias:
         l2[-1:].fill_(0.0)  # a fill on the device: an indexed store of a float would copy it from the host
-    W0 = spd_solve(state.Sxx0 + torch.diag(l2), state.Sxy0)
-    W1 = spd_solve(state.Sxx1 + torch.diag(l2), state.Sxy1)
+    reg = torch.diag(l2)
+    # both systems in one batched factor and solve
+    W0, W1 = spd_solve(torch.stack([state.Sxx0 + reg, state.Sxx1 + reg]), torch.stack([state.Sxy0, state.Sxy1]))
     return x @ W0, x @ W1
 
 
@@ -316,6 +317,8 @@ def rls_update(state: RLSState, x: torch.Tensor, y: torch.Tensor) -> RLSState:
     y = y.detach()
     A = x @ state.P @ x.T
     A = A + state.lam * torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
+    # pivoted LU, not ``spd_solve``: P loses positive definiteness in f32
+    # over long runs, which a Cholesky factor would not survive
     P = state.P - state.P @ x.T @ torch.linalg.solve(A, x @ state.P)
     P = P / state.lam
     theta = state.theta + P @ x.T @ (y - x @ state.theta)
@@ -453,11 +456,13 @@ def qda_init(nx: int, classes, lamdiff: float = 1e-2, delta: float = 1e-3, devic
 
 def _cgll(x: torch.Tensor, m: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
     """Gaussian log-likelihood up to constants of every sample under every
-    class model: x (B, D), m (C, D), S (C, D, D) -> (C, B)."""
-    diff = x[None, :, :] - m[:, None, :]  # (C, B, D)
-    sol = spd_solve(S, diff.transpose(-1, -2))  # (C, D, B)
-    resids = torch.einsum("cbd,cdb->cb", diff, sol)
-    return -0.5 * (spd_slogdet(S)[:, None] + resids)
+    model: x (B, D), m (K, D), S (K, D, D) -> (K, B). One Cholesky factor
+    L of each S gives both terms: the Mahalanobis term ||L^-1 (x - m)||^2
+    from one triangular solve, and log det S."""
+    L = spd_factor(S)
+    diff = x[None, :, :] - m[:, None, :]  # (K, B, D)
+    half = torch.linalg.solve_triangular(L, diff.transpose(-1, -2), upper=False)  # (K, D, B)
+    return -0.5 * (factor_logdet(L)[:, None] + (half * half).sum(-2))
 
 
 def _masked_moments(x: torch.Tensor, mask: torch.Tensor):
@@ -482,10 +487,10 @@ def qda_loss(state: QDAState, x: torch.Tensor, y: torch.Tensor):
     Returns (loss, new_state)."""
     i1 = _class_mask(state, y, x.dtype)
     i0 = 1.0 - i1
-    lla0 = _cgll(x, state.m0a.detach(), state.S0a.detach())
-    lla1 = _cgll(x, state.m1a.detach(), state.S1a.detach())
-    llb0 = _cgll(x, state.m0b.detach(), state.S0b.detach())
-    llb1 = _cgll(x, state.m1b.detach(), state.S1b.detach())
+    # the four models of every class as one batch of 4C: one factor, one solve
+    m = torch.cat([state.m0a, state.m1a, state.m0b, state.m1b]).detach()
+    S = torch.cat([state.S0a, state.S1a, state.S0b, state.S1b]).detach()
+    lla0, lla1, llb0, llb1 = _cgll(x, m, S).split(state.classes.shape[0])
 
     batch_y = i1 * 2.0 - 1.0
     llra = torch.einsum("cb,cb->c", batch_y, lla1 - lla0)

@@ -73,11 +73,13 @@ def advance_counts(now, before, after, times: int):
 def capturable_linalg():
     """Route torch's CUDA linear algebra to cuSOLVER and cuBLAS while the
     block runs (``torch.backends.cuda.preferred_linalg_library``, restored
-    after): by default torch sends some small batched LU solves (the
-    scrubbers' ``spd_solve``, forward and backward) to MAGMA, whose solve
-    waits on the host and cannot be captured. The trainer's eager epochs
-    take the same route, so that a graph and an eager epoch compute the
-    same bits."""
+    after): by default torch sends some small batched solves to MAGMA,
+    whose routines wait on the host and cannot be captured. Under it the
+    scrubbers' Cholesky factors (``ops.smallsolve``: ``cholesky_ex``,
+    forward and backward) run on cuSOLVER and their triangular solves on
+    cuBLAS, and so does the pivoted LU of ``linalg.solve`` where a step
+    still calls it (RLS). The trainer's eager epochs take the same route,
+    so that a graph and an eager epoch compute the same bits."""
     prev = torch.backends.cuda.preferred_linalg_library()
     torch.backends.cuda.preferred_linalg_library("cusolver")
     try:

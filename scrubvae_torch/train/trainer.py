@@ -49,7 +49,11 @@ captures the train step again, so the untraced graph holds no stamp. The
 host phases of a train epoch are profiler ranges (``host_span``) while a
 profiler runs. Always kept: ``graph_captures`` (switching the tracing
 counts as one), ``replays`` and ``host_syncs`` (every readback of the
-train and validation epochs). The host does not wait for the uploads of
+train and validation epochs), and the train steps' SPD factorizations,
+``spd_factorizations`` and ``spd_not_pd`` (``profiling.SolveCounts``:
+running totals on the device, read with the train epoch's sums); a
+readback that finds new factorizations not positive definite warns once
+with their count. The host does not wait for the uploads of
 an epoch's loss weights and indices, so a train epoch's one host sync is
 its readback.
 
@@ -82,6 +86,7 @@ from __future__ import annotations
 
 import contextlib
 import time
+import warnings
 from typing import Dict, Optional
 
 import numpy as np
@@ -104,7 +109,7 @@ from scrubvae_torch.train.step import (
 )
 from scrubvae_torch.utils import checkpoint as ckpt
 from scrubvae_torch.utils.logging import MetricLogger
-from scrubvae_torch.utils.profiling import StepSpans, host_span, stamping
+from scrubvae_torch.utils.profiling import SolveCounts, StepSpans, counting_solves, host_span, stamping
 
 __all__ = ["Trainer", "train"]
 
@@ -245,6 +250,7 @@ class Trainer:
         self.host_syncs = 0
         self.tracing = False
         self.spans = StepSpans(self.device)
+        self.solve_counts = SolveCounts(self.device)
         self._eval_gen = torch.Generator(device=self.device)
         self.is_main = self.mesh is None or self.mesh.is_main
         self.logger = (
@@ -285,25 +291,46 @@ class Trainer:
             self._train_graph = None
         self.tracing = on
 
-    def _step(self, state, idx, weights, sums):
-        """The in-place train step, stamping its layers while tracing."""
-        if not self.tracing:
-            return self.inplace_step(state, idx, weights, sums)
-        with stamping(self.spans):
-            return self.inplace_step(state, idx, weights, sums)
+    @property
+    def spd_factorizations(self) -> int:
+        """The train steps' SPD factorizations, as of the last readback."""
+        return self.solve_counts.spd_factorizations
 
-    def _to_host(self, sums: Dict[str, torch.Tensor], spans: Optional[StepSpans] = None) -> Dict[str, float]:
-        """The device scalars of ``sums`` as floats, sorted by key, and the
-        totals of ``spans`` (``StepSpans.take``), read in one copy: one
-        host sync, none where there is nothing to read."""
+    @property
+    def spd_not_pd(self) -> int:
+        """Those of them not positive definite, as of the last readback."""
+        return self.solve_counts.spd_not_pd
+
+    def _step(self, state, idx, weights, sums):
+        """The in-place train step, counting its factorizations and, while
+        tracing, stamping its layers."""
+        with counting_solves(self.solve_counts):
+            if not self.tracing:
+                return self.inplace_step(state, idx, weights, sums)
+            with stamping(self.spans):
+                return self.inplace_step(state, idx, weights, sums)
+
+    def _to_host(self, sums: Dict[str, torch.Tensor], spans: Optional[StepSpans] = None,
+                 counts: Optional[SolveCounts] = None) -> Dict[str, float]:
+        """The device scalars of ``sums`` as floats, sorted by key, the
+        totals of ``spans`` (``StepSpans.take``) and the solve counts
+        ``counts`` (``SolveCounts.take``, a warning for new factorizations
+        not positive definite), read in one copy: one host sync, none where
+        there is nothing to read."""
         keys = sorted(sums)
         parts = ([torch.stack([sums[k].double() for k in keys])] if keys else []) + (
             [spans.sums.double()] if spans is not None else []
-        )
+        ) + ([counts.buf.double()] if counts is not None else [])
         if not parts:
             return {}
         values = torch.cat(parts).tolist()
         self.host_syncs += 1
+        if counts is not None:
+            new = counts.take(values[-2:])
+            if new:
+                warnings.warn(f"{new} SPD factorization(s) of the scrubbers' solves were not numerically "
+                              f"positive definite (spd_not_pd {counts.spd_not_pd} of {counts.spd_factorizations})")
+            values = values[:-2]
         if spans is not None:
             spans.take(values[len(keys):])
         return dict(zip(keys, values[: len(keys)]))
@@ -377,7 +404,8 @@ class Trainer:
         n = max(len(idx_matrix), 1)
         with host_span("train.readback"):
             # sorted, as the JAX package's jitted steps return their dicts
-            return {k: v / n for k, v in self._to_host(sums, self.spans if self.tracing else None).items()}
+            host = self._to_host(sums, self.spans if self.tracing else None, self.solve_counts)
+            return {k: v / n for k, v in host.items()}
 
     def _loss_weights(self, loss_scale: Dict[str, float]) -> Dict[str, torch.Tensor]:
         """``loss_scale`` written into the float64 device buffer that the
@@ -402,7 +430,7 @@ class Trainer:
         reads has moved)."""
 
         def reads():
-            return (self.model, self.state, self.train_ds, self._idx_buf, self._loss_vec, sums)
+            return (self.model, self.state, self.train_ds, self._idx_buf, self._loss_vec, sums, self.solve_counts.buf)
 
         graph = self._train_graph
         if graph is not None:

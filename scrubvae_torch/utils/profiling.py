@@ -36,6 +36,14 @@ otherwise.
 Host syncs. ``count_syncs`` counts the operations of a block that make the
 host wait for a CUDA device (torch's sync debug mode: a readback, a copy
 from pageable memory that waits, a ``.item()``), whatever code runs them.
+
+Solve counts. ``SolveCounts`` keeps, on the device, the number of SPD
+factorizations (``ops.smallsolve.spd_factor``) made while ``counting_solves``
+made it active, and the number of them whose ``info`` was non-zero: a
+matrix that was not numerically positive definite at its precision. Each
+factorization adds to both with device operations, so a captured step
+keeps counting at every replay and the host reads them with the epoch's
+other sums; elsewhere ``count_factorizations`` does nothing.
 """
 
 from __future__ import annotations
@@ -54,8 +62,9 @@ from torch.utils._pytree import tree_flatten
 from scrubvae_torch.utils.cuda_build import CudaLibrary
 
 __all__ = [
-    "SLOTS", "STAMP_LIBRARY", "StepSpans", "SyncCount", "count_syncs", "debug_nans", "device_memory_stats",
-    "host_span", "launch_stamp", "stamp", "stamping", "trace",
+    "SLOTS", "STAMP_LIBRARY", "SolveCounts", "StepSpans", "SyncCount", "count_factorizations", "count_syncs",
+    "counting_solves", "debug_nans", "device_memory_stats", "host_span", "launch_stamp", "stamp", "stamping",
+    "trace",
 ]
 
 SLOTS = ("data", "encoder", "decoder", "scrub_forward", "losses", "backward", "optimizer", "scrub_update",
@@ -182,6 +191,53 @@ def stamping(spans: StepSpans):
         yield
     finally:
         _active = prev
+
+
+class SolveCounts:
+    """The SPD factorizations counted on ``device`` (the module docstring):
+    ``buf`` holds their number and the number not positive definite
+    (int64, running totals, never reset); ``spd_factorizations`` and
+    ``spd_not_pd`` are the last readback's."""
+
+    def __init__(self, device):
+        self.buf = torch.zeros(2, dtype=torch.int64, device=device)
+        self.spd_factorizations = 0
+        self.spd_not_pd = 0
+
+    def count(self, info: torch.Tensor) -> None:
+        """Add the factorizations of one call, whose ``info`` (one entry a
+        matrix) is non-zero where the matrix was not positive definite."""
+        self.buf[0].add_(info.numel())
+        self.buf[1].add_(torch.count_nonzero(info))
+
+    def take(self, values: Sequence[float]) -> int:
+        """Keep the readback's values of ``buf``; returns the factorizations
+        not positive definite since the previous readback."""
+        new = int(values[1]) - self.spd_not_pd
+        self.spd_factorizations, self.spd_not_pd = int(values[0]), int(values[1])
+        return new
+
+
+_counting: Optional[SolveCounts] = None
+
+
+def count_factorizations(info: torch.Tensor) -> None:
+    """Count one factorization call (``SolveCounts.count``) into the counts
+    that ``counting_solves`` made active; nothing outside it."""
+    if _counting is not None:
+        _counting.count(info)
+
+
+@contextlib.contextmanager
+def counting_solves(counts: SolveCounts):
+    """Make ``counts`` the one that ``count_factorizations`` adds to while
+    the block runs."""
+    global _counting
+    prev, _counting = _counting, counts
+    try:
+        yield
+    finally:
+        _counting = prev
 
 
 def host_span(name: str):
