@@ -6,12 +6,14 @@ card at the cell's own size (the benchmark's runs do not run this).
 For every seed: the program's first three steps against the reference's
 (the sound runs, which give each number's lower reading). For the first
 ``--controls`` seeds also each of ``--kinds`` against the reference:
-``control`` (the reference with the VAE's layers in fp8, where the
-configuration states bf16), ``half_batch`` (the reference with half of
-each batch left out), ``unchanged`` (the reference with each step's state
-put back as it was) and ``skip_lowp`` (the program with its optimizer's
-launches over the leaves of a low-precision weight or moment dtype left
-out). Writes one JSON record, with every reading.
+``control`` (the reference one step below the precision the program
+computes the configuration's VAE in: its layers in fp8 under bf16, its
+products and convolutions in TF32 under f32), ``half_batch`` (the
+reference with half of each batch left out), ``unchanged`` (the reference
+with each step's state put back as it was) and ``skip_lowp`` (the
+program with its optimizer's launches over the leaves of a low-precision
+weight or moment dtype left out). Writes one JSON record, with every
+reading.
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ def readings(su, kind: str, device: str = "cuda") -> dict:
     from benchmark import run
 
     if kind == "control":
-        return run.reference_readings(su, "fp8")
+        return run.reference_readings(su, control=True)
     if kind == "skip_lowp":
         with skip_lowp_launches():
             broken = run.set_up(su.name, su.seed, device)

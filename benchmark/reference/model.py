@@ -1,22 +1,52 @@
-"""The residual conv VAE with its scrubber heads, plain PyTorch in f32.
+"""The VAE with its scrubber heads, plain PyTorch in f32.
 
-A frozen copy of the measured program's ``rcnn`` model under the gaussian
-prior: NCW convolutions, flax-style BatchNorm (f32 statistics, biased
-variance, momentum 0.9, eps 1e-4), single-parameter PReLU, the packed or
-dense Cholesky head, arena root normalisation and one-hot/continuous
-conditional decoding; the linear null-space projection, the
-gradient-reversal MLP ensemble and the adversarial discriminator.
-Parameter names equal the program's, so weights go to both by name.
+The ``rcnn`` here is a frozen copy of the measured program's residual conv
+VAE under the gaussian prior: NCW convolutions, flax-style BatchNorm (f32
+statistics, biased variance, momentum 0.9, eps 1e-4), single-parameter
+PReLU, the packed or dense Cholesky head, arena root normalisation and
+one-hot/continuous conditional decoding; the linear null-space
+projection, the gradient-reversal MLP ensemble and the adversarial
+discriminator. Parameter names equal the program's, so weights go to both
+by name.
 
 ``quant`` is where the VAE computes below f32: None (the reference) or
 ``fp8`` (the control), a per-tensor scaled e4m3 rounding of each conv and
 dense layer's input, weight and output and of each BatchNorm output, with
 e5m2 rounding of the gradient flowing back, at the places where the
 program computes in bf16.
+
+The VAE of another ``model.type`` is the module
+``benchmark/reference/vae_<type>.py``, found by that name (``build``). It
+keeps the interface that the losses and the step read from the rcnn's
+``ResVAE``:
+
+- ``build_vae(model_cfg, in_ch, cond_dim, conditional_keys,
+  discrete_classes, arena, loss_keys, quant)``: the VAE, in f32, wrapped
+  by ``build`` in the same ``ScrubVAE`` with the same scrubber heads;
+- ``compute_precision(model_cfg, train_cfg)``: "bf16" or "f32", what the
+  program computes this VAE in; the control is one step below it
+  (``CONTROL``), and ``quant`` is ``fp8`` only under a "bf16" one;
+- ``SMALL``: the model keys of the CPU tests' size (``--small``);
+- on the VAE, ``z_dim`` and ``cond_dim`` (the conditionals' width);
+  ``encode(data, mu_only=False)``, ``{"mu"}`` and, unless ``mu_only``, the
+  head's factor (``"L"``, dense (B, z, z), or ``"Lp"``, packed rows);
+  ``forward(data, eps=None, generator=None)``, in training mode with
+  ``eps`` z = mu + L eps, else z = mu, returning the encoding with ``z``,
+  ``var`` (the conditionals, where there are any), ``x6d`` (B, W, J, 6)
+  and ``root`` (B, W, 3). ``generator`` is the step's own, handed over
+  after the sample noise and the adversarial shuffles: a VAE with dropout
+  draws its masks from it in the program's order, one without draws
+  nothing. MCMI's eval-mode ``encode`` gets none;
+- parameter names equal to the program's ``model.vae``'s;
+- ``init_kind(pname) -> (kind, fan_in)`` on a sub-module whose own
+  parameters the rcnn's rules of ``init_kinds`` do not cover (a LayerNorm:
+  ``one`` and ``zero``; an attention's bare ``in_proj_weight``: ``kernel``
+  over its input width).
 """
 
 from __future__ import annotations
 
+import importlib
 import math
 from typing import Callable, Dict, Optional, Sequence
 
@@ -283,7 +313,8 @@ class ResVAE(nn.Module):
         mu, L = self.encoder(x_in, mu_only=mu_only)
         return {"mu": mu} if L is None else {"mu": mu, self.sigma_key: L}
 
-    def forward(self, data, eps=None):
+    def forward(self, data, eps=None, generator=None):
+        """``generator``: the step's; the rcnn has no dropout and draws nothing from it."""
         out = self.encode(data)
         L = out[self.sigma_key]
         if self.training and eps is not None:
@@ -368,14 +399,14 @@ class AdvNet(nn.Module):
 
 
 class ScrubVAE(nn.Module):
-    def __init__(self, vae: ResVAE, linear_dims: Dict[str, int], gr_dims: Dict[str, int], gr_alpha: float):
+    def __init__(self, vae: nn.Module, linear_dims: Dict[str, int], gr_dims: Dict[str, int], gr_alpha: float):
         super().__init__()
         self.vae = vae
         self.linear = nn.ModuleDict({k: LinearProjection(vae.z_dim, d) for k, d in linear_dims.items()})
         self.grad_reversal = nn.ModuleDict({k: GRScrubber(vae.z_dim, d, gr_alpha) for k, d in gr_dims.items()})
 
-    def forward(self, data, eps=None):
-        out = self.vae(data, eps=eps)
+    def forward(self, data, eps=None, generator=None):
+        out = self.vae(data, eps=eps, generator=generator)
         dis = {}
         if len(self.linear):
             dis["linear"] = {k: m(out["mu"]) for k, m in self.linear.items()}
@@ -394,24 +425,82 @@ def feat_dims(window: int, discrete_classes: Dict[str, int]) -> Dict[str, int]:
     return {**FEAT_DIMS, "frame_speed": window - 1, **discrete_classes}
 
 
+# the control of a configuration, by the precision the program computes
+# its VAE in: the reference one step below it
+CONTROL = {"bf16": "fp8", "f32": "tf32"}
+# the rcnn's model keys at the CPU tests' size: the bench's smoke widths
+RCNN_SMALL = {"channel": [8, 8, 16, 16, 32], "z_dim": 16}
+
+
+def model_type(model_cfg: dict) -> str:
+    return model_cfg.get("type") or "rcnn"
+
+
+def vae_module(mtype: str):
+    """``benchmark/reference/vae_<mtype>.py``, the reference VAE of a
+    ``model.type`` other than the rcnn (module docstring)."""
+    name = f"benchmark.reference.vae_{mtype}"
+    try:
+        return importlib.import_module(name)
+    except ModuleNotFoundError as err:
+        if err.name != name:
+            raise
+        raise ValueError(f"no reference VAE for model.type {mtype!r}: benchmark/reference/vae_{mtype}.py "
+                         "is missing") from err
+
+
+def compute_precision(model_cfg: dict, train_cfg: dict) -> str:
+    """"bf16" or "f32": what the program computes the configuration's VAE
+    in. The rcnn reads ``model.precision``, or ``train.precision`` where the
+    model section has no such key, as the program's set-up does; another
+    type's module says."""
+    mtype = model_type(model_cfg)
+    if mtype != "rcnn":
+        return vae_module(mtype).compute_precision(model_cfg, train_cfg)
+    precision = model_cfg["precision"] if "precision" in model_cfg else train_cfg.get("precision")
+    return "bf16" if precision == "bf16" else "f32"
+
+
+def control(sections: dict) -> str:
+    """The control of the configuration's sections: "fp8" (the VAE's
+    layers rounded to fp8) where the program computes in bf16, "tf32"
+    (products and convolutions in TF32) where it computes in f32."""
+    return CONTROL[compute_precision(sections["model"], sections["train"])]
+
+
+def small_shape(model_cfg: dict) -> dict:
+    """The model keys of the configuration's type at the CPU tests' size."""
+    mtype = model_type(model_cfg)
+    return dict(RCNN_SMALL if mtype == "rcnn" else vae_module(mtype).SMALL)
+
+
 def build(model_cfg: dict, dis_cfg: dict, loss_keys: Sequence[str], n_keypts: int, arena, discrete_classes,
           quant: Quant = None) -> ScrubVAE:
-    """The model of the configuration's sections (the rcnn under the
-    gaussian prior, midfwd input with the root channels)."""
-    if (model_cfg.get("type") or "rcnn") != "rcnn" or (model_cfg.get("prior") or "gaussian") != "gaussian":
-        raise ValueError("the reference holds the rcnn ResVAE under the gaussian prior only")
+    """The model of the configuration's sections under the gaussian prior,
+    midfwd input with the root channels: the rcnn here, another type's VAE
+    from its module (module docstring)."""
+    if (model_cfg.get("prior") or "gaussian") != "gaussian":
+        raise ValueError("the reference holds the gaussian prior only")
+    mtype = model_type(model_cfg)
     methods = dis_cfg.get("method") or {}
     window = model_cfg.get("window") or 51
     fd = feat_dims(window, discrete_classes)
     cond = list(methods.get("conditional", []))
-    packed = model_cfg.get("packed_sigma")
-    if packed is None:
-        packed = "total_correlation" not in set(loss_keys)
-    vae = ResVAE(
-        n_keypts * 6 + 3, tuple(model_cfg.get("channel") or (64, 128, 256, 512, 1024)), model_cfg.get("kernel") or 5,
-        model_cfg.get("z_dim") or 128, window, sum(fd[k] for k in cond), arena, cond, discrete_classes,
-        packed=bool(packed), quant=quant,
-    )
+    cond_dim = sum(fd[k] for k in cond)
+    in_ch = n_keypts * 6 + 3
+    if mtype == "rcnn":
+        packed = model_cfg.get("packed_sigma")
+        if packed is None:
+            packed = "total_correlation" not in set(loss_keys)
+        vae = ResVAE(
+            in_ch, tuple(model_cfg.get("channel") or (64, 128, 256, 512, 1024)), model_cfg.get("kernel") or 5,
+            model_cfg.get("z_dim") or 128, window, cond_dim, arena, cond, discrete_classes,
+            packed=bool(packed), quant=quant,
+        )
+    else:
+        vae = vae_module(mtype).build_vae(model_cfg, in_ch=in_ch, cond_dim=cond_dim, conditional_keys=cond,
+                                          discrete_classes=discrete_classes, arena=arena, loss_keys=loss_keys,
+                                          quant=quant)
     return ScrubVAE(
         vae, {k: fd[k] for k in methods.get("linear", [])}, {k: fd[k] for k in methods.get("grad_reversal", [])},
         float(dis_cfg.get("alpha") or 1.0),
@@ -431,12 +520,17 @@ def fan_in(module: nn.Module) -> Optional[int]:
 
 def init_kinds(model: nn.Module):
     """(name, parameter, kind, fan_in) of every parameter: ``kernel`` (a
-    normal draw over sqrt(fan_in)), ``zero``, ``one`` or ``prelu``."""
+    normal draw over sqrt(fan_in)), ``zero``, ``one`` or ``prelu``. A
+    module's own ``init_kind(pname)`` decides for its parameters; the
+    rcnn's modules go by the rules below."""
     out = []
     for mname, m in model.named_modules():
+        own = getattr(m, "init_kind", None)
         for pname, p in m.named_parameters(recurse=False):
             name = f"{mname}.{pname}" if mname else pname
-            if isinstance(m, PReLU):
+            if own is not None:
+                out.append((name, p, *own(pname)))
+            elif isinstance(m, PReLU):
                 out.append((name, p, "prelu", None))
             elif isinstance(m, BatchNorm1d):
                 out.append((name, p, "one" if pname == "weight" else "zero", None))

@@ -4,7 +4,8 @@ A frozen copy of the measured program's step order: window assembly,
 the sample noise and then the adversarial shuffles drawn from one
 generator seeded with ``train.seed`` (one shuffle for the generator
 losses, then ``n_iter`` for each feature's inner fit), the forward in
-training mode, the loss terms, the backward, AdamW, the MALS and QDA
+training mode (handed the same generator for any dropout masks of the
+VAE), the loss terms, the backward, AdamW, the MALS and QDA
 updates on the detached mu, the discriminators' inner fits on the
 detached (mu, conditionals), and MCMI's estimator rebuilt from the batch
 encoded in eval mode under the updated parameters.
@@ -12,11 +13,14 @@ encoded in eval mode under the updated parameters.
 ``Reference(...)`` takes the configuration's sections, the raw pose
 stream, the weights the benchmark made (by parameter name) and the seed;
 ``run(rows)`` takes one step a row of window indices and returns the
-readings the comparison uses. ``precision="fp8"`` is the control (the
-VAE's layers rounded to fp8 where the program computes in bf16);
-``fault="half_batch"`` leaves out the second half of each row (every
-mean is then the first half's); ``fault="unchanged"`` takes each step and
-then puts every piece of state back as it was before it.
+readings the comparison uses. ``precision`` is "fp32" (the reference,
+TF32 off) or the control that ``model.control`` names for the
+configuration: "fp8" (the VAE's layers rounded to fp8, where the program
+computes in bf16) or "tf32" (products and convolutions in TF32, where it
+computes in f32). ``fault="half_batch"`` leaves out the second half of
+each row (every mean is then the first half's); ``fault="unchanged"``
+takes each step and then puts every piece of state back as it was before
+it.
 """
 
 from __future__ import annotations
@@ -37,10 +41,11 @@ ADAM_B1 = 0.9
 
 
 @contextlib.contextmanager
-def exact_f32():
-    """f32 products and convolutions without TF32, restored after."""
+def f32_products(tf32: bool = False):
+    """f32 products and convolutions with TF32 off (or on, ``tf32``),
+    restored after."""
     prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
     try:
         yield
     finally:
@@ -68,13 +73,14 @@ class Reference:
         self.device = torch.device(device)
         self.skeleton = skeleton
         self.fault = fault
+        self.tf32 = precision == "tf32"
         window = model_cfg.get("window") or 51
         self.store = rdata.build_frame_store(pose, ids, skeleton, window, int(data_cfg.get("stride") or 2), self.device)
         self.B = min(batch, len(self.store))
         self.direction = data_cfg.get("direction_process") or "midfwd"
         classes = np.unique(ids)
         self.discrete = {"ids": len(classes)}
-        quant = {"fp32": None, "fp8": rm.fp8}[precision]
+        quant = {"fp32": None, "fp8": rm.fp8, "tf32": None}[precision]
         arena = np.asarray(data_cfg["arena_size"], np.float32)
         self.model = rm.build(model_cfg, self.dis_cfg, self.loss_cfg.keys(), skeleton.n_keypts, arena, self.discrete,
                               quant=quant).to(self.device)
@@ -165,7 +171,7 @@ class Reference:
             perm = lambda: self._draw(torch.randperm, B)  # noqa: E731
             perms = {"loss": perm(), "fit": {k: [perm() for _ in range(self.n_iter)] for k in self.adv}}
         self.model.train()
-        out = self.model(data, eps=eps)
+        out = self.model(data, eps=eps, generator=self.gen)
         bl, new_scrub = rl.batch_loss(
             data, out, loss_scale(self.loss_cfg, self.train_cfg, epoch), self.dis_cfg, self.skeleton.tree, self.scrub,
             {k: net for k, (net, _) in self.adv.items()}, self.mi, perms["loss"] if perms else None, self.slices,
@@ -193,7 +199,7 @@ class Reference:
         step 1 and the mean of steps 2 and 3, each leaf's norm of the first
         gradient as AdamW took it, each leaf's norm of its change over the
         three steps, and each streaming state's norm after them."""
-        with exact_f32():
+        with f32_products(self.tf32):
             rows_t = torch.as_tensor(np.asarray(rows), device=self.device)
             l1 = self.step(rows_t[0], epoch)
             grad1 = {n: norm(g) for n, g in zip(self.names, self.opt.last_grads)}

@@ -63,8 +63,9 @@ CACHE_VARS = {
 # the rows of the profiled slice
 DATA, WEIGHTS, ROWS, SLICE, ADV = 1, 2, 3, 4, 100
 SLICE_STEPS = 24
-# the CPU size of the tests: the bench's smoke widths, f32 throughout
-SMALL = {"channel": [8, 8, 16, 16, 32], "z_dim": 16, "batch": 16, "n_frames": 800}
+# the CPU size of the tests, f32 throughout: the batch, the stream and the
+# model keys of the configuration's type (``reference.model.small_shape``)
+SMALL = {"batch": 16, "n_frames": 800}
 
 
 def process_start() -> float:
@@ -103,7 +104,9 @@ class RunView:
 
 
 def _shrink(sections: dict) -> dict:
-    sections["model"].update(channel=SMALL["channel"], z_dim=SMALL["z_dim"], precision="fp32")
+    from benchmark.reference import model as rm
+
+    sections["model"].update(rm.small_shape(sections["model"]), precision="fp32")
     sections["train"].update(precision="fp32", param_dtype="f32")
     sections["data"]["batch_size"] = SMALL["batch"]
     return sections
@@ -121,12 +124,15 @@ def power_limit() -> Optional[float]:
 @dataclasses.dataclass
 class SetUp:
     """What set-up made: the program's trainer after its first three steps
-    and their readings, and what the reference needs to take them again."""
+    and their readings, and what the reference needs to take them again
+    (``control``: the control of the cell's configuration as it is stated,
+    which ``--small`` keeps)."""
 
     name: str
     seed: int
     device: object
     sections: dict
+    control: str
     chips: int
     flops: int
     pose: object
@@ -159,6 +165,7 @@ def set_up(name: str, seed: int, device, small: bool = False) -> SetUp:
     cell = manifest.workload(name)
     traffic = manifest.traffic(cell["traffic"])
     sections = manifest.sections(cell["config"], traffic["batch_size"], seed)
+    control = rm.control(sections)
     n_frames = traffic["n_frames"]
     if small:
         sections, n_frames = _shrink(sections), SMALL["n_frames"]
@@ -186,9 +193,9 @@ def set_up(name: str, seed: int, device, small: bool = False) -> SetUp:
                 "change3": program.changes(trainer, bw.as_stored(w, lowp)),
                 "state3": program.state_norms(trainer, adv_w)}
     groups = {n: roofline.dtype_group(p.numel(), sections["train"]) for n, p in shell.named_parameters()}
-    return SetUp(name, seed, dev, sections, int(cell["chips"]), manifest.flops(cell["config"], traffic["batch_size"])[
-        "flops_per_step"], pose, ids, skel, shell, [p.numel() for p in shell.parameters()], groups, lowp, rows, B,
-        trainer, ds, adv_w, readings)
+    flops = manifest.flops(cell["config"], traffic["batch_size"])["flops_per_step"]
+    return SetUp(name, seed, dev, sections, control, int(cell["chips"]), flops, pose, ids, skel, shell,
+                 [p.numel() for p in shell.parameters()], groups, lowp, rows, B, trainer, ds, adv_w, readings)
 
 
 def free_program(su: SetUp) -> None:
@@ -202,15 +209,16 @@ def free_program(su: SetUp) -> None:
         torch.cuda.empty_cache()
 
 
-def reference_readings(su: SetUp, precision: str = "fp32", fault: Optional[str] = None) -> dict:
-    """The reference's readings of the same three steps (``precision``
-    "fp8" is the control, ``fault`` a fault planted in it)."""
+def reference_readings(su: SetUp, control: bool = False, fault: Optional[str] = None) -> dict:
+    """The reference's readings of the same three steps (``control``: the
+    configuration's control in its place; ``fault``: a fault planted in
+    it)."""
     from benchmark import weights as bw
     from benchmark.reference.step import Reference
 
     w = bw.as_stored(bw.make(su.shell, bw.derived_seed(su.seed, WEIGHTS), su.device), su.lowp)
     ref = Reference(su.sections, su.pose, su.ids, su.skel, w, su.adv_w, su.seed, su.device, batch=su.batch,
-                    precision=precision, fault=fault)
+                    precision=su.control if control else "fp32", fault=fault)
     return ref.run(su.rows, epoch=1)
 
 

@@ -26,9 +26,9 @@ SLOTS = ("data", "encoder", "decoder", "scrub_forward", "losses", "backward", "o
 QUANTITIES = tuple(f"{s}_ms" for s in SLOTS) + ("host_syncs_per_epoch", "replays_pct")
 CELLS = [w["name"] for w in manifest.benchmark()["workloads"]]
 SEED = 2**31 + 11
-# kernels_per_step of each cell at the parent commit (ledger): the
-# untraced graph holds no stamp
-KERNELS = {"flagship.b512": 2546.7, "full5.b512": 4124.0}
+# kernels_per_step of each cell as PERF_LEDGER.jsonl has it since the SPD
+# solves went to one Cholesky factor: the untraced graph holds no stamp
+KERNELS = {"flagship.b512": 2581.8, "full5.b512": 4036.1}
 
 
 def span_metrics(cell: str) -> list:
@@ -111,9 +111,10 @@ def test_traced_line_reports_the_spans(cell):
     metrics = {k: v["value"] for k, v in result["metrics"].items()}
     print(cell, json.dumps({n: metrics.get(n) for n in span_metrics(cell) + [n for n in metrics if "kernels" in n]}))
     assert result["correct"] and set(span_metrics(cell)) <= set(metrics)
-    sfx = "" if cell.startswith("flagship") else ".full5"
+    sfx = next(n for n in span_metrics(cell) if n.split(".")[0] == "replays_pct")[len("replays_pct"):]
     assert metrics["host_syncs_per_epoch" + sfx] == 1 and metrics["replays_pct" + sfx] == 100.0
-    assert abs(metrics["kernels_per_step" + sfx] - KERNELS[cell]) <= 1.0
+    if cell in KERNELS:
+        assert abs(metrics["kernels_per_step" + sfx] - KERNELS[cell]) <= 1.0
 
 
 @pytest.mark.card
