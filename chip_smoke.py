@@ -355,6 +355,23 @@ steps would give them (the graph phase holds the two equal).
    listed), and over its warm epoch and window ``spd_not_pd``
    stays 0 with 19 factorizations a step (16 QDA, 2 MALS, 1 projection).
 
+19. nested: the transformer's nested spans (``profiling.NESTED``) in the
+   ``transformer.b512`` cell as the benchmark sets it up
+   (``benchmark.run``), in graph epochs of 20 steps, with the launches
+   counted from 0: an untraced epoch of replays launches no stamp and no
+   nested span; tracing on captures again, and each
+   traced epoch launches 40 nested-span kernels a step (a pair for each of
+   the 12 attention and 8 feed-forward blocks) beside the 10 stamps, and
+   charges each attention and feed-forward block once a step, the two
+   together under the encoder's and decoder's slots; tracing off launches
+   neither again. In one traced replay under the profiler: 10
+   ``span_stamp`` and 40 ``nested_span`` kernels. One eager training
+   forward of the cell's VAE at batch 512 draws 73,552,404 dropout values
+   (``torch.rand``; 22 x 512 x 51 x 128 + 8 x 51 x 51 + 4 x 51), and none
+   in eval mode. Then ``flagship.b512`` and ``full5.b512`` set up alike: a
+   traced replay holds 10 ``span_stamp`` kernels and no ``nested_span``
+   kernel.
+
 Each phase logs its wall seconds ("phase NAME: S s"). Prints one JSON line
 describing the kernels, the card's name and power limit again, then, as its
 last line, the device record. Needs one CUDA GPU and
@@ -385,7 +402,7 @@ ADAMW_FLOPS_PER_ELEM = 20
 ROOT = pathlib.Path(__file__).resolve().parent
 PHASES = (
     "kernel", "parity", "path", "fit", "full", "bench", "x360", "models", "surface", "analysis", "serve", "mesh", "graph",
-    "spans", "solves",
+    "spans", "solves", "nested",
 )
 DEVICE = "cuda"
 
@@ -4686,6 +4703,109 @@ def solves_phase(card: str) -> dict:
     return rec
 
 
+NESTED_CELLS = ("transformer.b512", "flagship.b512", "full5.b512")
+NESTED_SEED, NESTED_STEPS = 1_902_030_405, 20
+NESTED_DRAWS_PER_STEP = 22 * 512 * 51 * 128 + 8 * 51 * 51 + 4 * 51  # the transformer cell's masks
+NESTED_PER_STEP = 2 * (12 + 8)  # a pair a block: 8 self- and 4 cross-attentions, 8 feed-forward blocks
+
+
+def eager_draws(vae, data, train: bool) -> int:
+    """The values ``torch.rand`` draws in one forward of ``vae`` on
+    ``data``, in training mode or in eval mode, from a generator of its
+    own (the trainer's is left alone)."""
+    drawn, rand = [0], torch.rand
+
+    def counting(*args, **kwargs):
+        out = rand(*args, **kwargs)
+        drawn[0] += out.numel()
+        return out
+
+    was = vae.training
+    vae.train(train)
+    torch.rand = counting
+    try:
+        with torch.no_grad():
+            vae(data, eps=None, generator=torch.Generator(device=DEVICE).manual_seed(NESTED_SEED))
+    finally:
+        torch.rand = rand
+        vae.train(was)
+    return drawn[0]
+
+
+def nested_cell(cell: str) -> dict:
+    """One cell set up as the benchmark does: its untraced, traced and
+    again untraced graph epochs with the stamp and nested-span launches,
+    one traced replay's kernels and, for the transformer, the dropout draws
+    of an eager forward (phase 19)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark import run as brun
+    from benchmark import trace
+    from scrubvae_torch.utils import profiling
+
+    transformer = cell.startswith("transformer")
+    su = brun.set_up(cell, NESTED_SEED, DEVICE)
+    trainer, ds = su.trainer, su.ds
+    rng = np.random.default_rng(NESTED_SEED)
+
+    def epoch(rows: int = NESTED_STEPS) -> dict:
+        launches = profiling.launch_stamp.launches, profiling.launch_nested.launches
+        trainer.train_epoch(2, rng.integers(0, len(ds), (rows, trainer.batch_size)))
+        got = (profiling.launch_stamp.launches, profiling.launch_nested.launches)
+        return {k: (a - b) / rows for k, a, b in zip(("stamps", "nested"), got, launches)}
+
+    def expect(what: str, got, want) -> None:
+        if got != want:
+            raise AssertionError(f"nested {cell}: {what} {got}, not {want}")
+
+    nested = NESTED_PER_STEP if transformer else 0
+    epoch()  # captures the untraced step
+    expect("an untraced epoch a step", epoch(), {"stamps": 0, "nested": 0})
+    trainer.set_tracing(True)
+    expect("the recapturing traced epoch a step", epoch(), {"stamps": 10, "nested": nested})
+    expect("a traced epoch of replays a step", epoch(), {"stamps": 10, "nested": nested})
+    spans = trainer.spans
+    ms, nested_ms = spans.ms_per_step(), spans.nested_ms_per_step()
+    if transformer:
+        expect("a traced epoch's nested charges", spans.nested_counts,
+               {"attention": 12 * NESTED_STEPS, "feedforward": 8 * NESTED_STEPS})
+        if not 0 < nested_ms["attention"] + nested_ms["feedforward"] < ms["encoder"] + ms["decoder"]:
+            raise AssertionError(f"nested {cell}: attention and feed-forward {nested_ms} against the slots {ms}")
+    else:
+        expect("a traced epoch's nested charges", spans.nested_counts, {"attention": 0, "feedforward": 0})
+    rows = rng.integers(0, len(ds), (1, trainer.batch_size))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.train_epoch(2, rows)  # one replay
+        torch.cuda.synchronize()
+    names = [e["name"] for e in trace.from_profiler(prof) if e["device"]]
+    kernels = {"span_stamp": sum("span_stamp" in n for n in names), "nested_span": sum("nested_span" in n for n in names)}
+    expect("one traced replay's kernels", kernels, {"span_stamp": 10, "nested_span": nested})
+    trainer.set_tracing(False)
+    expect("an untraced epoch after tracing a step", epoch(), {"stamps": 0, "nested": 0})
+    draws = None
+    if transformer:
+        data = ds.batch(torch.as_tensor(rows[0], device=DEVICE))
+        draws = {"train": eager_draws(trainer.model.vae, data, True), "eval": eager_draws(trainer.model.vae, data, False)}
+        expect("an eager forward's dropout draws", draws, {"train": NESTED_DRAWS_PER_STEP, "eval": 0})
+    rec = {"cell": cell, "seed": NESTED_SEED, "steps": NESTED_STEPS, "draws": draws,
+           "nested_per_step": nested, "replay_kernels": kernels, "slot_ms_per_step": ms,
+           "nested_ms_per_step": nested_ms}
+    trainer.release_graphs()
+    del trainer, ds, su
+    torch.cuda.empty_cache()
+    log("nested cell: " + json.dumps(rec))
+    return rec
+
+
+def nested_phase(card: str) -> dict:
+    """The nested spans of the three cells and the transformer's dropout
+    draws (phase 19)."""
+    rec = {cell: nested_cell(cell) for cell in NESTED_CELLS}
+    log(f"nested phase ({card}): " + json.dumps(rec))
+    return rec
+
+
 def kernels_line(kernel: dict, path: dict, fit: dict, full: dict, bench: dict, x360: dict, models: dict,
                  surface: dict = None, serve: dict = None, mesh: dict = None, graph: dict = None) -> dict:
     """One record per kernel of the main path: its launches on the path run
@@ -4889,6 +5009,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         if "solves" in phases:
             timed("solves", solves_phase, card)
+        torch.cuda.empty_cache()
+        if "nested" in phases:
+            timed("nested", nested_phase, card)
     finally:
         shutil.rmtree(analysis_tmp, ignore_errors=True)
     if kernel is not None and path is not None:

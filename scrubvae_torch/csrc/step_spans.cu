@@ -19,6 +19,13 @@
 // time on the card; it moves 32 bytes. The design keeps it one thread of
 // one block, no atomics (stamps on one stream never overlap) and nothing
 // the host waits for.
+//
+// A nested span (a kind of block inside the slots, such as the
+// transformer's attention) is a second kernel of the same form over a
+// buffer of its own, int64, 3 * n_spans words: each span's total, its
+// count, the time it was last opened. Opening records the time; closing
+// adds the time since the opening to the span's total and counts it. It
+// leaves the slots' last time alone, so the slots still split the step.
 
 #include <cuda_runtime.h>
 
@@ -36,5 +43,22 @@ __global__ void span_stamp_kernel(long long* buf, int n_slots, int slot) {
 
 extern "C" int span_stamp_launch(void* buf, int n_slots, int slot, void* stream) {
   span_stamp_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((long long*)buf, n_slots, slot);
+  return (int)cudaGetLastError();
+}
+
+__global__ void nested_span_kernel(long long* buf, int n_spans, int span, int close) {
+  unsigned long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  long long* opened = buf + 2 * n_spans + span;
+  if (close) {
+    buf[span] += (long long)now - *opened;
+    buf[n_spans + span] += 1;
+  } else {
+    *opened = (long long)now;
+  }
+}
+
+extern "C" int nested_span_launch(void* buf, int n_spans, int span, int close, void* stream) {
+  nested_span_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((long long*)buf, n_spans, span, close);
   return (int)cudaGetLastError();
 }

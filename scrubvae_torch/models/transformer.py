@@ -23,6 +23,11 @@ with one (q_len, kv_len) mask for the whole batch and every head; its masks
 are drawn from the ``generator`` passed down from ``forward``. The rate is
 each sub-module's ``dropout`` (0.1, as in the JAX model, which sets no
 other). The model computes in f32; bf16-stored kernels are promoted.
+
+In a traced train step (``utils.profiling``) every attention block, from
+its in-projection to its out-projection, is nested span ``attention``,
+and every layer's ``linear1``, activation and ``linear2`` nested span
+``feedforward``, in the forward pass alone.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ from torch import nn
 from scrubvae_torch.models.base import PoseVAE
 from scrubvae_torch.models.layers import CholeskyL, Linear, lecun_normal_
 from scrubvae_torch.parallel.mesh import current_rows, shard_batch
-from scrubvae_torch.utils.profiling import stamp
+from scrubvae_torch.utils.profiling import nested_span, stamp
 
 __all__ = [
     "sinusoidal_positions",
@@ -97,6 +102,12 @@ def _act(name: str):
     return F.gelu if name == "gelu" else F.relu
 
 
+def _feedforward(layer, x: torch.Tensor) -> torch.Tensor:
+    """``linear2(act(linear1(x)))`` of an encoder or decoder layer."""
+    with nested_span("feedforward"):
+        return layer.linear2(_act(layer.activation)(layer.linear1(x)))
+
+
 class _Dropping(nn.Module):
     """A module with a dropout rate that acts in training mode."""
 
@@ -139,6 +150,10 @@ class MultiheadAttention(_Dropping):
         self.out_proj = Linear(d, d)
 
     def forward(self, x: torch.Tensor, memory: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        with nested_span("attention"):
+            return self._attend(x, memory, generator)
+
+    def _attend(self, x: torch.Tensor, memory: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
         B, Lq, d = x.shape
         H = self.n_heads
         dt = torch.promote_types(x.dtype, self.in_proj_weight.dtype)
@@ -169,8 +184,7 @@ class EncoderLayer(_Dropping):
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = self.norm1(x + self.drop(self.self_attn(x, x, generator), generator))
-        h = self.linear2(_act(self.activation)(self.linear1(x)))
-        return self.norm2(x + self.drop(h, generator))
+        return self.norm2(x + self.drop(_feedforward(self, x), generator))
 
 
 class DecoderLayer(_Dropping):
@@ -188,8 +202,7 @@ class DecoderLayer(_Dropping):
     def forward(self, tgt: torch.Tensor, memory: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         tgt = self.norm1(tgt + self.drop(self.self_attn(tgt, tgt, generator), generator))
         tgt = self.norm2(tgt + self.drop(self.multihead_attn(tgt, memory, generator), generator))
-        h = self.linear2(_act(self.activation)(self.linear1(tgt)))
-        return self.norm3(tgt + self.drop(h, generator))
+        return self.norm3(tgt + self.drop(_feedforward(self, tgt), generator))
 
 
 class _Stack(nn.Module):

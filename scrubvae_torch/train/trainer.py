@@ -44,8 +44,10 @@ statistics in place, so nothing is left to donate).
 Tracing. ``set_tracing(True)`` makes the train steps stamp their layers
 (``utils.profiling``: on the card a kernel a stamp, which a captured graph
 keeps as a node); the epoch's totals come back in its one readback, and
-``spans.ms_per_step()`` gives each slot's time a step. Switching it
-captures the train step again, so the untraced graph holds no stamp. The
+``spans.ms_per_step()`` gives each slot's time a step and
+``spans.nested_ms_per_step()`` each nested span's (the transformer's
+attention and feed-forward blocks). Switching it captures the train step
+again, so the untraced graph holds no stamp. The
 host phases of a train epoch are profiler ranges (``host_span``) while a
 profiler runs. Always kept: ``graph_captures`` (switching the tracing
 counts as one), ``replays`` and ``host_syncs`` (every readback of the

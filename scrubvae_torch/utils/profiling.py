@@ -23,11 +23,21 @@ previous one to its slot (``SLOTS``), so the stamps split the step:
 - ``replay_gap``: from a step's last stamp to the next step's first, in
   one epoch.
 
+Nested spans (``NESTED``) time a kind of block inside those slots: a
+``nested_span`` opens and closes one interval and charges it to its own
+total, and leaves the slots' last time alone, so the slots still split
+the step and a slot's time holds the nested intervals within it. The
+transformer's ``attention`` runs from an attention block's in-projection
+to its out-projection, the weights' dropout included; its
+``feedforward`` from ``linear1`` through the activation to ``linear2``.
+
 On the card a stamp is a one-thread kernel (``csrc/step_spans.cu``) that
 reads the GPU's ``%globaltimer``; captured in a CUDA graph it is a node of
 the graph, so replays stamp with no host work. On the CPU it adds
-``time.perf_counter_ns()`` deltas into a CPU buffer. Stamps fire only
-inside ``stamping``; elsewhere ``stamp`` does nothing.
+``time.perf_counter_ns()`` deltas into a CPU buffer. A nested span's two
+ends are a kernel of their own (``nested_span_kernel``, counted by
+``launch_nested.launches``) or the same CPU arithmetic. Stamps and nested
+spans fire only inside ``stamping``; elsewhere they do nothing.
 
 Host spans. ``host_span`` names a phase of the host's epoch
 (``torch.profiler.record_function``) while a profiler runs, and is nothing
@@ -62,19 +72,23 @@ from torch.utils._pytree import tree_flatten
 from scrubvae_torch.utils.cuda_build import CudaLibrary
 
 __all__ = [
-    "SLOTS", "STAMP_LIBRARY", "SolveCounts", "StepSpans", "SyncCount", "count_factorizations", "count_syncs",
-    "counting_solves", "debug_nans", "device_memory_stats", "host_span", "launch_stamp", "stamp", "stamping",
-    "trace",
+    "NESTED", "SLOTS", "STAMP_LIBRARY", "SolveCounts", "StepSpans", "SyncCount", "count_factorizations",
+    "count_syncs", "counting_solves", "debug_nans", "device_memory_stats", "host_span", "launch_nested",
+    "launch_stamp", "nested_span", "stamp", "stamping", "trace",
 ]
 
 SLOTS = ("data", "encoder", "decoder", "scrub_forward", "losses", "backward", "optimizer", "scrub_update",
          "replay_gap")
+NESTED = ("attention", "feedforward")
 STAMP_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "step_spans.cu"
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.span_stamp_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # buf n_slots slot stream
+    fn.restype = ctypes.c_int
+    fn = lib.nested_span_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # buf n span close stream
     fn.restype = ctypes.c_int
 
 
@@ -119,22 +133,46 @@ def launch_stamp(buf: torch.Tensor, slot: int) -> None:
 launch_stamp.launches = 0
 
 
+def launch_nested(buf: torch.Tensor, span: int, close: bool) -> None:
+    """One nested-span kernel into ``buf`` (``StepSpans.nested_buf``),
+    opening or closing span index ``span``, on the current stream.
+    ``launches`` counts the launches as ``launch_stamp.launches`` does."""
+    if buf.device.type != "cuda" or buf.dtype != torch.int64 or buf.shape != (3 * len(NESTED),):
+        raise ValueError(f"launch_nested: buf must be {3 * len(NESTED)} int64 words on a CUDA device")
+    if not 0 <= span < len(NESTED):
+        raise ValueError(f"launch_nested: no span {span}")
+    stream = torch.cuda.current_stream(buf.device).cuda_stream
+    err = STAMP_LIBRARY.load().nested_span_launch(buf.data_ptr(), len(NESTED), span, int(close), stream)
+    if err != 0:
+        raise RuntimeError(f"nested span kernel launch failed: cudaError {err}")
+    launch_nested.launches += 1
+
+
+launch_nested.launches = 0
+
+
 class StepSpans:
     """The train step's spans on ``device``: ``buf`` holds each slot's
     total in nanoseconds, each slot's count of charges, and the time of the
-    last stamp (int64, ``2 * len(SLOTS) + 1``); ``totals_ns`` and
-    ``counts`` are the last readback's."""
+    last stamp (int64, ``2 * len(SLOTS) + 1``); ``nested_buf`` each nested
+    span's total, its count and the time it was last opened (int64,
+    ``3 * len(NESTED)``); ``totals_ns``, ``counts``, ``nested_totals_ns``
+    and ``nested_counts`` are the last readback's."""
 
     def __init__(self, device):
         self.buf = torch.zeros(2 * len(SLOTS) + 1, dtype=torch.int64, device=device)
+        self.nested_buf = torch.zeros(3 * len(NESTED), dtype=torch.int64, device=device)
         self.totals_ns: Dict[str, int] = {}
         self.counts: Dict[str, int] = {}
+        self.nested_totals_ns: Dict[str, int] = {}
+        self.nested_counts: Dict[str, int] = {}
 
     def start_epoch(self) -> None:
         """Zero the totals, the counts and the last time (a fill on the
         current stream: the host waits for nothing), so the epoch's first
         stamp charges nothing."""
         self.buf.zero_()
+        self.nested_buf.zero_()
 
     def stamp(self, slot: str) -> None:
         """Charge the time since the previous stamp to ``slot``."""
@@ -149,16 +187,34 @@ class StepSpans:
             self.buf[n + i] += 1
         self.buf[2 * n] = now
 
+    def nest(self, span: str, close: bool) -> None:
+        """Open nested ``span``, or close it and charge it the time since."""
+        i = NESTED.index(span)
+        if self.nested_buf.is_cuda:
+            launch_nested(self.nested_buf, i, close)
+            return
+        now, m = time.perf_counter_ns(), len(NESTED)
+        if close:
+            self.nested_buf[i] += now - int(self.nested_buf[2 * m + i])
+            self.nested_buf[m + i] += 1
+        else:
+            self.nested_buf[2 * m + i] = now
+
     @property
     def sums(self) -> torch.Tensor:
-        """The totals and counts: what the epoch's readback carries."""
-        return self.buf[: 2 * len(SLOTS)]
+        """The slots' totals and counts, then the nested spans': what the
+        epoch's readback carries."""
+        return torch.cat([self.buf[: 2 * len(SLOTS)], self.nested_buf[: 2 * len(NESTED)]])
 
     def take(self, values: Sequence[float]) -> None:
-        """Keep the readback's values of ``sums``."""
-        n = len(SLOTS)
+        """Keep the readback's values of ``sums`` (the nested spans' taken
+        as 0 where ``values`` holds the slots' alone)."""
+        n, m = len(SLOTS), len(NESTED)
         self.totals_ns = {s: int(values[i]) for i, s in enumerate(SLOTS)}
         self.counts = {s: int(values[n + i]) for i, s in enumerate(SLOTS)}
+        nested = list(values[2 * n: 2 * n + 2 * m]) or [0] * (2 * m)
+        self.nested_totals_ns = {s: int(nested[i]) for i, s in enumerate(NESTED)}
+        self.nested_counts = {s: int(nested[m + i]) for i, s in enumerate(NESTED)}
 
     def ms_per_step(self) -> Dict[str, Optional[float]]:
         """Each slot's milliseconds a step over the last read epoch: its
@@ -171,6 +227,14 @@ class StepSpans:
             out[s] = self.totals_ns.get(s, 0) / count / 1e6 if count else None
         return out
 
+    def nested_ms_per_step(self) -> Dict[str, Optional[float]]:
+        """Each nested span's milliseconds a step over the last read epoch,
+        over the steps as ``ms_per_step`` counts them; None where it was
+        never closed."""
+        steps = self.counts.get("data", 0)
+        return {s: self.nested_totals_ns.get(s, 0) / steps / 1e6 if steps and self.nested_counts.get(s) else None
+                for s in NESTED}
+
 
 _active: Optional[StepSpans] = None
 
@@ -180,6 +244,19 @@ def stamp(slot: str) -> None:
     that ``stamping`` made active; nothing outside it."""
     if _active is not None:
         _active.stamp(slot)
+
+
+@contextlib.contextmanager
+def nested_span(name: str):
+    """Time the block as nested span ``name`` of the spans that
+    ``stamping`` made active; nothing outside it."""
+    spans = _active
+    if spans is None:
+        yield
+        return
+    spans.nest(name, close=False)
+    yield
+    spans.nest(name, close=True)
 
 
 @contextlib.contextmanager
