@@ -164,7 +164,8 @@ steps would give them (the graph phase holds the two equal).
    table bitwise against the plain version. For the transformer, its dropout
    at the 0.1 rate on one flagship batch (the kept share of each residual
    and positional mask within 0.005 of 0.9, kept entries scaled by 1/0.9,
-   one attention mask for the whole batch and every head, no mask drawn in
+   each residual tail's kernel within 4 ulps of the plain version with its
+   mask, one attention mask for the whole batch and every head, no mask drawn in
    eval mode or by the eval step), then its epoch 21 against a resume from
    epoch 20, bit for bit (the dropout masks' generator included). Prints
    each run's step time inside ``fit``, the epoch, validation and
@@ -371,9 +372,34 @@ steps would give them (the graph phase holds the two equal).
    in eval mode. Then ``flagship.b512`` and ``full5.b512`` set up alike: a
    traced replay holds 10 ``span_stamp`` kernels and no ``nested_span``
    kernel.
+20. norm: the transformer's post-norm tail (``ops/residual_norm.py``,
+   ``csrc/residual_norm.cu``) at the cell's shape, (512, 51, 128) f32, with
+   a keep mask at rate 0.1 from a generator and without one: the kernels'
+   output and its three gradients (dx, dy and dweight with dbias) beside
+   the plain version's on the card, both against the plain version in
+   float64; the kernels' error may not exceed twice the plain version's
+   (plus 2^-22 of the largest value), and the output's largest gap to the
+   plain f32 version is given in f32 ulps at its scale. A second run
+   repeats every output bit for bit (dweight and dbias sum in a fixed
+   order). The masked check runs again at the widths 130, 1000, 1001 and
+   3632 (one-float chunks; 16-byte chunks and one-float chunks with the
+   backward past 48 KB of shared memory; the most a row). Then
+   ``transformer.b512`` as the benchmark sets it up: a graph epoch of
+   replays launches 20 forward and 40 backward kernels a step (20 tails;
+   two backward kernels a tail), an eval forward 20 and 0; its encoder
+   exported on the card (``utils.export``) launches none while it is
+   traced or its artifact runs, and the artifact gives the eager
+   encoder's outputs (8 tails by the kernels) within the serve phase's
+   tolerance. ``flagship.b512`` launches none. Last, device times (torch.profiler,
+   over input sets that together exceed the 50 MB L2): forward and
+   backward kernels beside their bound at 3.35 TB/s, the plain version's
+   ops and ``F.layer_norm`` of the pre-added sum (``library_ms``, a
+   yardstick the port never calls).
 
 Each phase logs its wall seconds ("phase NAME: S s"). Prints one JSON line
-describing the kernels, the card's name and power limit again, then, as its
+describing the kernels (``fused_adamw`` where phases kernel and path ran;
+``residual_norm`` from phase norm, its figures null where it did not run),
+the card's name and power limit again, then, as its
 last line, the device record. Needs one CUDA GPU and
 ``nvcc``; exits non-zero without them.
 """
@@ -402,7 +428,7 @@ ADAMW_FLOPS_PER_ELEM = 20
 ROOT = pathlib.Path(__file__).resolve().parent
 PHASES = (
     "kernel", "parity", "path", "fit", "full", "bench", "x360", "models", "surface", "analysis", "serve", "mesh", "graph",
-    "spans", "solves", "nested",
+    "spans", "solves", "nested", "norm",
 )
 DEVICE = "cuda"
 
@@ -2159,15 +2185,18 @@ def dropout_statistics(trainer, batch: dict) -> dict:
     """The transformer's dropout at its 0.1 rate on one flagship batch, in
     training mode with a generator of its own: every residual and
     positional mask keeps 0.9 of the nonzero entries within
-    ``KEPT_SHARE_TOL`` and scales the kept ones by 1/0.9 (bitwise as the
-    division on the card computes it); every attention mask is one (q, kv)
-    mask for the whole batch and every head, scaling by 1/0.9 within one
-    f32 ulp. Then neither an eval-mode forward (twice, bitwise equal) nor
-    the eval step draws a mask."""
+    ``KEPT_SHARE_TOL``; a positional one scales the kept ones by 1/0.9
+    (bitwise as the division on the card computes it), and a residual
+    tail's kernel (``residual_norm``) gives the plain version's output with
+    its mask within 4 f32 ulps at the output's scale; every attention mask
+    is one (q, kv) mask for the whole batch and every head, scaling by
+    1/0.9 within one f32 ulp. Then neither an eval-mode forward (twice,
+    bitwise equal) nor the eval step draws a mask."""
     from scrubvae_torch.models import transformer as tr
+    from scrubvae_torch.ops.residual_norm import residual_norm_reference
 
     calls = {"dropout": [], "attention": []}
-    saved = (tr.dropout, tr.attention_dropout)
+    saved = (tr.dropout, tr.attention_dropout, tr.residual_norm)
 
     def residual(x, rate, generator):
         out = saved[0](x, rate, generator)
@@ -2176,6 +2205,16 @@ def dropout_statistics(trainer, batch: dict) -> dict:
             "shape": list(x.shape), "rate": rate, "kept_share": float(kept[nonzero].float().mean()),
             "scaled": bool(torch.equal(out[kept], (x / (1.0 - rate))[kept])),
         })
+        return out
+
+    def tail(x, y, keep, rate, weight, bias, eps):
+        out = saved[2](x, y, keep, rate, weight, bias, eps)
+        if keep is not None:
+            ref = residual_norm_reference(x, y, keep, rate, weight, bias, eps)
+            calls["dropout"].append({
+                "shape": list(y.shape), "rate": rate, "kept_share": float(keep[y != 0].float().mean()),
+                "scaled": float((out - ref).abs().max()) <= 4 * 2.0 ** -23 * float(ref.abs().max()),
+            })
         return out
 
     def attention(w, rate, generator):
@@ -2192,7 +2231,7 @@ def dropout_statistics(trainer, batch: dict) -> dict:
     model = trainer.model
     B = batch["x6d"].shape[0]
     try:
-        tr.dropout, tr.attention_dropout = residual, attention
+        tr.dropout, tr.attention_dropout, tr.residual_norm = residual, attention, tail
         model.train()
         with torch.no_grad():
             model(batch, eps=torch.zeros(B, model.vae.z_dim, device=DEVICE),
@@ -2207,7 +2246,7 @@ def dropout_statistics(trainer, batch: dict) -> dict:
         trainer.eval_step(trainer.state, idx, trainer.loss_scale_for_epoch(MODELS_EPOCHS), data=batch,
                           generator=torch.Generator(device=DEVICE).manual_seed(1))
     finally:
-        tr.dropout, tr.attention_dropout = saved
+        tr.dropout, tr.attention_dropout, tr.residual_norm = saved
     n_layers = len(model.vae.encoder.transformer_encoder.layers)
     want = (2 + 2 * n_layers + 3 * n_layers, 3 * n_layers)
     shares = [c["kept_share"] for c in train_calls["dropout"]]
@@ -4806,6 +4845,261 @@ def nested_phase(card: str) -> dict:
     return rec
 
 
+NORM_SHAPE, NORM_RATE, NORM_SEED = (512, 51, 128), 0.1, 2_100_000_021
+# widths past the cell's, each a path of the kernels the cell does not take:
+# 130 the one-float chunks, 1000 the 16-byte chunks and 1001 the one-float
+# chunks with a backward past 48 KB of shared memory, 3632 the most
+# (``residual_norm.MAX_D``)
+NORM_WIDTH_SHAPES = ((64, 51, 130), (16, 51, 1000), (16, 51, 1001), (8, 51, 3632))
+NORM_SETS = 4  # input sets the timings cycle through: 4 x 43 MB and more, past the 50 MB L2
+NORM_CELL_STEPS = 20
+NORM_TAILS, NORM_ENCODER_TAILS = 20, 8  # 4 encoder layers x 2 and 4 decoder layers x 3
+
+
+def _norm_inputs(gen: torch.Generator, masked: bool, shape=NORM_SHAPE) -> dict:
+    from scrubvae_torch.models.transformer import LN_EPS
+
+    B, L, d = shape
+    return {
+        "x": torch.randn(B, L, d, generator=gen, device=DEVICE),
+        "y": torch.randn(B, L, d, generator=gen, device=DEVICE),
+        "keep": torch.rand(B, L, d, generator=gen, device=DEVICE) < 1.0 - NORM_RATE if masked else None,
+        "rate": NORM_RATE,
+        "weight": 0.5 + torch.rand(d, generator=gen, device=DEVICE),
+        "bias": torch.rand(d, generator=gen, device=DEVICE) - 0.5,
+        "eps": LN_EPS,
+    }
+
+
+def _norm_run(fn, a: dict, g: torch.Tensor, dtype=torch.float32) -> dict:
+    """``fn``'s output and its gradients in x, y, weight and bias for the
+    output gradient ``g``, on copies of the inputs cast to ``dtype``."""
+    leaves = {k: a[k].detach().to(dtype).requires_grad_() for k in ("x", "y", "weight", "bias")}
+    out = fn(leaves["x"], leaves["y"], a["keep"], a["rate"], leaves["weight"], leaves["bias"], a["eps"])
+    grads = torch.autograd.grad(out, list(leaves.values()), g.to(dtype))
+    return {"out": out.detach(), **{"d" + k: v for k, v in zip(leaves, grads)}}
+
+
+def norm_check(masked: bool, shape=NORM_SHAPE) -> dict:
+    """The kernels against the plain version at ``shape`` (phase 20)."""
+    from scrubvae_torch.ops import residual_norm as rn
+
+    gen = torch.Generator(device=DEVICE).manual_seed(NORM_SEED + masked + shape[-1])
+    a = _norm_inputs(gen, masked, shape)
+    g = torch.randn(shape, generator=gen, device=DEVICE)
+    launches = rn.residual_norm.launches, rn.residual_norm_grad.launches
+    kernel = _norm_run(rn.residual_norm, a, g)
+    again = _norm_run(rn.residual_norm, a, g)
+    ran = (rn.residual_norm.launches - launches[0], rn.residual_norm_grad.launches - launches[1])
+    plain = _norm_run(rn.residual_norm_reference, a, g)
+    exact = _norm_run(rn.residual_norm_reference, a, g, torch.float64)
+    torch.cuda.synchronize()
+    rec = {"shape": list(shape), "masked": masked, "launches": ran,
+           "repeats_bitwise": all(bits_equal(kernel[k], again[k]) for k in kernel)}
+    bad = []
+    if ran != (2, 4):
+        bad.append(f"launches {ran}, not (2, 4)")
+    if not rec["repeats_bitwise"]:
+        bad.append("a second run differs")
+    for k, ref in exact.items():
+        scale = float(ref.abs().max())
+        err_k = float((kernel[k].double() - ref).abs().max()) / scale
+        err_p = float((plain[k].double() - ref).abs().max()) / scale
+        gap = float((kernel[k] - plain[k]).abs().max())
+        ulp = 2.0 ** (math.floor(math.log2(float(plain[k].abs().max()))) - 23)
+        rec[k] = {"kernel_err": err_k, "plain_err": err_p, "gap": gap, "gap_ulps": gap / ulp}
+        if not err_k <= 2 * err_p + 2.0 ** -22:
+            bad.append(f"{k}: kernel error {err_k:.3g} against the plain version's {err_p:.3g}")
+    if bad:
+        raise AssertionError(f"norm check {rec}: {bad}")
+    log("norm check: " + json.dumps(rec))
+    return rec
+
+
+def norm_cell(cell: str) -> dict:
+    """Tail launches a step in a graph epoch of the cell as the benchmark
+    sets it up, and in one eval forward (phase 20)."""
+    from benchmark import run as brun
+    from scrubvae_torch.ops import residual_norm as rn
+
+    su = brun.set_up(cell, NORM_SEED, DEVICE)
+    trainer, ds = su.trainer, su.ds
+    rng = np.random.default_rng(NORM_SEED)
+
+    def counts():
+        return rn.residual_norm.launches, rn.residual_norm_grad.launches
+
+    trainer.train_epoch(2, rng.integers(0, len(ds), (NORM_CELL_STEPS, trainer.batch_size)))  # captures
+    before = counts()
+    trainer.train_epoch(2, rng.integers(0, len(ds), (NORM_CELL_STEPS, trainer.batch_size)))
+    step = [(b - a) / NORM_CELL_STEPS for a, b in zip(before, counts())]
+    data = ds.batch(torch.as_tensor(rng.integers(0, len(ds), trainer.batch_size), device=DEVICE))
+    vae = trainer.model.vae
+    vae.eval()
+    before = counts()
+    with torch.no_grad():
+        vae(data, eps=None)
+    evals = [b - a for a, b in zip(before, counts())]
+    vae.train()
+    torch.cuda.synchronize()
+    transformer = cell.startswith("transformer")
+    want = ([NORM_TAILS, 2 * NORM_TAILS], [NORM_TAILS, 0]) if transformer else ([0, 0], [0, 0])
+    rec = {"cell": cell, "per_step": step, "eval_forward": evals}
+    if transformer:
+        rec["export"] = norm_export(trainer.model, data)
+    brun.free_program(su)
+    if [step, evals] != list(want):
+        raise AssertionError(f"norm {cell}: launches {rec}, not {want}")
+    log("norm cell: " + json.dumps(rec))
+    return rec
+
+
+def norm_export(model, data: dict) -> dict:
+    """The transformer's encoder exported on the card (``utils.export``):
+    the trace and the artifact launch no tail kernel (an exported program
+    runs the plain tails), and the artifact gives the eager encoder's
+    outputs, whose tails are the kernels, within the serve phase's
+    tolerance (phase 20)."""
+    from scrubvae_torch.ops import residual_norm as rn
+    from scrubvae_torch.utils.export import ENCODER_KEYS, export_encoder, load_exported
+
+    def counts():
+        return rn.residual_norm.launches, rn.residual_norm_grad.launches
+
+    inputs = {k: data[k] for k in ENCODER_KEYS if k in data}
+    before = counts()
+    fn = load_exported(export_encoder(model, inputs))
+    exported = [b - a for a, b in zip(before, counts())]
+    was = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            before = counts()
+            got = fn(inputs)
+            artifact = [b - a for a, b in zip(before, counts())]
+            want = model.encode(inputs)
+            eager = [b - a for a, b in zip(before, counts())]
+    finally:
+        model.train(was)
+    rec = {"export_launches": exported, "artifact_launches": artifact, "eager_launches": eager,
+           "max_abs_err": _serve_err("norm export", got, want, SERVE_TOL)}
+    if [exported, artifact, eager] != [[0, 0], [0, 0], [NORM_ENCODER_TAILS, 0]]:
+        raise AssertionError(f"norm export: launches {rec}, not 0, 0 and {NORM_ENCODER_TAILS} forward")
+    return rec
+
+
+def norm_timings() -> dict:
+    """Device ms of a forward and of a backward at the cell's shape with a
+    mask: the kernels, their bound, the plain version, ``F.layer_norm`` of
+    the pre-added sum (phase 20)."""
+    import torch.nn.functional as F
+
+    from scrubvae_torch.ops import residual_norm as rn
+
+    gen = torch.Generator(device=DEVICE).manual_seed(NORM_SEED + 7)
+    sets = [_norm_inputs(gen, True) for _ in range(NORM_SETS)]
+    grads = [torch.randn(NORM_SHAPE, generator=gen, device=DEVICE) for _ in range(NORM_SETS)]
+    turn, held = [0], [None] * NORM_SETS
+
+    def cycle(fn):
+        # each call's outputs stay alive until its set comes round again,
+        # so every call writes buffers other than the last few calls' (the
+        # step's tails write fresh ones; rewriting one buffer would let the
+        # L2 absorb the writes)
+        def call():
+            i = turn[0] = (turn[0] + 1) % NORM_SETS
+            held[i] = fn(sets[i], grads[i], i)
+        return call
+
+    inv = float(np.float32(1.0) / np.float32(1.0 - NORM_RATE))
+    stats = [rn._forward_launch(a["x"], a["y"], a["keep"], inv, a["weight"], a["bias"], a["eps"])[1] for a in sets]
+
+    def plain(a, requires):
+        leaves = [a[k].detach().requires_grad_(requires) for k in ("x", "y", "weight", "bias")]
+        return leaves, rn.residual_norm_reference(leaves[0], leaves[1], a["keep"], a["rate"], *leaves[2:], a["eps"])
+
+    plain_graphs = [plain(a, True) for a in sets]
+    d = NORM_SHAPE[-1]
+    lib_in = [[(a["x"] + torch.where(a["keep"], a["y"] / (1.0 - NORM_RATE), 0.0)).requires_grad_(),
+               a["weight"].detach().requires_grad_(), a["bias"].detach().requires_grad_()] for a in sets]
+    lib_graphs = [F.layer_norm(s, (d,), w, b, sets[0]["eps"]) for s, w, b in lib_in]
+    n = sets[0]["x"].numel()
+    nbytes = {"forward": 4 * n * 3 + n, "backward": 4 * n * 5 + n}
+    rec = {
+        "shape": list(NORM_SHAPE),
+        "kernel_ms": {
+            "forward": device_ms(cycle(lambda a, g, i: rn._forward_launch(
+                a["x"], a["y"], a["keep"], inv, a["weight"], a["bias"], a["eps"]))),
+            "backward": device_ms(cycle(lambda a, g, i: rn.residual_norm_grad(
+                g, a["x"], a["y"], a["keep"], inv, a["weight"], stats[i]))),
+        },
+        "bound_ms": {k: v / HBM_BYTES_PER_S * 1e3 for k, v in nbytes.items()},
+        "bound_mb": {k: v / 1e6 for k, v in nbytes.items()},
+        "plain_ms": {
+            "forward": device_ms(cycle(lambda a, g, i: plain(a, False)[1])),
+            "backward": device_ms(cycle(lambda a, g, i: torch.autograd.grad(
+                plain_graphs[i][1], plain_graphs[i][0], g, retain_graph=True))),
+        },
+        "library_ms": {
+            "forward": device_ms(cycle(lambda a, g, i: F.layer_norm(
+                lib_in[i][0].detach(), (d,), a["weight"], a["bias"], a["eps"]))),
+            "backward": device_ms(cycle(lambda a, g, i: torch.autograd.grad(
+                lib_graphs[i], lib_in[i], g, retain_graph=True))),
+        },
+    }
+    rec["kernel_roofline_pct"] = {k: 100 * rec["bound_ms"][k] / rec["kernel_ms"][k] for k in nbytes}
+    log("norm timings: " + json.dumps(rec))
+    return rec
+
+
+def norm_phase(card: str) -> dict:
+    """The post-norm tail's kernels (phase 20)."""
+    rec = {"check": [norm_check(True), norm_check(False)] + [norm_check(True, sh) for sh in NORM_WIDTH_SHAPES]}
+    rec["cells"] = [norm_cell(c) for c in ("transformer.b512", "flagship.b512")]
+    torch.cuda.empty_cache()
+    rec["timings"] = norm_timings()
+    log(f"norm phase ({card}): " + json.dumps(rec))
+    return rec
+
+
+def norm_record(norm: dict = None) -> dict:
+    """The kernels line's record of the post-norm tail's kernels, from phase
+    20 alone (its fields null where the phase did not run): launches a step
+    of the transformer's graph epoch, forward and backward (0 on the
+    flagship), the largest error of any check against the plain version
+    in float64, and forward and backward device ms at the cell's shape
+    beside the bound, the plain version's and ``F.layer_norm``'s."""
+    rec = {
+        "name": "residual_norm",
+        "route": "cuda",
+        "source": "scrubvae_torch/csrc/residual_norm.cu",
+        "replaces": "none (XLA-fused in JAX)",
+        "kernels": ["residual_norm_forward_kernel", "residual_norm_backward_kernel",
+                    "residual_norm_weight_sum_kernel"],
+    }
+    fields = ("launches_per_step", "flagship_launches_per_step", "max_abs_err", "max_rel_err", "ms", "bound_ms",
+              "bound_by", "plain_ms", "library_ms", "shape", "checked_shapes")
+    outputs = ("out", "dx", "dy", "dweight", "dbias")
+    if norm is None:
+        return {**rec, **dict.fromkeys(fields)}
+    cells = {c["cell"]: c for c in norm["cells"]}
+    t = norm["timings"]
+    return {
+        **rec,
+        "launches_per_step": dict(zip(("forward", "backward"), cells["transformer.b512"]["per_step"])),
+        "flagship_launches_per_step": dict(zip(("forward", "backward"), cells["flagship.b512"]["per_step"])),
+        "max_abs_err": max(c[k]["gap"] for c in norm["check"] for k in outputs),
+        "max_rel_err": max(c[k]["kernel_err"] for c in norm["check"] for k in outputs),
+        "ms": t["kernel_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": "bytes",
+        "plain_ms": t["plain_ms"],
+        "library_ms": t["library_ms"],
+        "shape": t["shape"],
+        "checked_shapes": sorted({tuple(c["shape"]) for c in norm["check"]}),
+    }
+
+
 def kernels_line(kernel: dict, path: dict, fit: dict, full: dict, bench: dict, x360: dict, models: dict,
                  surface: dict = None, serve: dict = None, mesh: dict = None, graph: dict = None) -> dict:
     """One record per kernel of the main path: its launches on the path run
@@ -4957,10 +5251,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t0 = time.perf_counter()
-    lib = fa.build(force=True)
-    log(f"build fused_adamw: {time.perf_counter() - t0:.2f} s -> {lib.relative_to(ROOT)}")
-    log(lib.with_suffix(".ptxas.txt").read_text().strip())
+    from scrubvae_torch.ops import residual_norm as rn
+
+    for name, mod in (("fused_adamw", fa), ("residual_norm", rn)):
+        t0 = time.perf_counter()
+        lib = mod.build(force=True)
+        log(f"build {name}: {time.perf_counter() - t0:.2f} s -> {lib.relative_to(ROOT)}")
+        log(lib.with_suffix(".ptxas.txt").read_text().strip())
 
     flagship = None
     if {"kernel", "path", "profile"} & set(phases):
@@ -5012,10 +5309,15 @@ def main() -> int:
         torch.cuda.empty_cache()
         if "nested" in phases:
             timed("nested", nested_phase, card)
+        torch.cuda.empty_cache()
+        norm = timed("norm", norm_phase, card) if "norm" in phases else None
     finally:
         shutil.rmtree(analysis_tmp, ignore_errors=True)
+    records = []
     if kernel is not None and path is not None:
-        log(json.dumps(kernels_line(kernel, path, fit, full, bench, x360, models, surface, serve, mesh, graph)))
+        records = kernels_line(kernel, path, fit, full, bench, x360, models, surface, serve, mesh, graph)["kernels"]
+    if records or norm is not None:
+        log(json.dumps({"kernels": records + [norm_record(norm)]}))
     log(smi[0] if smi else "nvidia-smi: no output")
     print(json.dumps({
         "ok": True,

@@ -24,6 +24,12 @@ are drawn from the ``generator`` passed down from ``forward``. The rate is
 each sub-module's ``dropout`` (0.1, as in the JAX model, which sets no
 other). The model computes in f32; bf16-stored kernels are promoted.
 
+Every layer's sub-blocks end in the post-norm tail ``norm(x + drop(y))``:
+the residual mask is drawn here (``dropout_mask``, in the order the plain
+dropout drew it) and the tail runs as ``ops.residual_norm``, on the card one
+hand-written kernel forward and two backward (``csrc/residual_norm.cu``),
+on the CPU the same torch ops as ``dropout``, the add and ``LayerNorm``.
+
 In a traced train step (``utils.profiling``) every attention block, from
 its in-projection to its out-projection, is nested span ``attention``,
 and every layer's ``linear1``, activation and ``linear2`` nested span
@@ -42,12 +48,14 @@ from torch import nn
 
 from scrubvae_torch.models.base import PoseVAE
 from scrubvae_torch.models.layers import CholeskyL, Linear, lecun_normal_
+from scrubvae_torch.ops.residual_norm import layer_norm_reference, residual_norm
 from scrubvae_torch.parallel.mesh import current_rows, shard_batch
 from scrubvae_torch.utils.profiling import nested_span, stamp
 
 __all__ = [
     "sinusoidal_positions",
     "dropout",
+    "dropout_mask",
     "attention_dropout",
     "LayerNorm",
     "MultiheadAttention",
@@ -77,16 +85,21 @@ def _keep(shape, rate: float, generator: Optional[torch.Generator], device) -> t
     return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """flax's ``nn.Dropout`` in training mode: each entry kept with
-    probability 1 - rate and then divided by it, else 0. ``x`` is
+def dropout_mask(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The keep mask (bool, ``x``'s shape) of flax's ``nn.Dropout`` in
+    training mode: each entry kept with probability 1 - rate. ``x`` is
     batch-first; inside a data-parallel step (``parallel.mesh.step_rows``)
     the mask is drawn for the global batch and this rank's rows kept."""
     mesh = current_rows()
     if mesh is None:
-        keep = _keep(x.shape, rate, generator, x.device)
-    else:
-        keep = shard_batch(mesh, _keep((x.shape[0] * mesh.data,) + tuple(x.shape[1:]), rate, generator, x.device))
+        return _keep(x.shape, rate, generator, x.device)
+    return shard_batch(mesh, _keep((x.shape[0] * mesh.data,) + tuple(x.shape[1:]), rate, generator, x.device))
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's ``nn.Dropout`` in training mode: each entry kept
+    (``dropout_mask``) and then divided by 1 - rate, else 0."""
+    keep = dropout_mask(x, rate, generator)
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -118,6 +131,11 @@ class _Dropping(nn.Module):
             return dropout(x, self.dropout, generator)
         return x
 
+    def add_norm(self, x: torch.Tensor, y: torch.Tensor, norm: "LayerNorm", generator: Optional[torch.Generator]):
+        """The post-norm tail ``norm(x + drop(y))`` as one ``residual_norm``."""
+        keep = dropout_mask(y, self.dropout, generator) if self.training and self.dropout > 0.0 else None
+        return residual_norm(x, y, keep, self.dropout, norm.weight.to(x.dtype), norm.bias.to(x.dtype), norm.eps)
+
 
 class LayerNorm(nn.Module):
     """LayerNorm over the last axis with flax's arithmetic:
@@ -130,9 +148,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(d))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mean = x.mean(-1, keepdim=True)
-        var = torch.clamp((x * x).mean(-1, keepdim=True) - mean * mean, min=0.0)
-        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight.to(x.dtype)) + self.bias.to(x.dtype)
+        return layer_norm_reference(x, self.weight, self.bias, self.eps)
 
 
 class MultiheadAttention(_Dropping):
@@ -183,8 +199,8 @@ class EncoderLayer(_Dropping):
         self.norm2 = LayerNorm(d)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = self.norm1(x + self.drop(self.self_attn(x, x, generator), generator))
-        return self.norm2(x + self.drop(_feedforward(self, x), generator))
+        x = self.add_norm(x, self.self_attn(x, x, generator), self.norm1, generator)
+        return self.add_norm(x, _feedforward(self, x), self.norm2, generator)
 
 
 class DecoderLayer(_Dropping):
@@ -200,9 +216,9 @@ class DecoderLayer(_Dropping):
         self.norm3 = LayerNorm(d)
 
     def forward(self, tgt: torch.Tensor, memory: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        tgt = self.norm1(tgt + self.drop(self.self_attn(tgt, tgt, generator), generator))
-        tgt = self.norm2(tgt + self.drop(self.multihead_attn(tgt, memory, generator), generator))
-        return self.norm3(tgt + self.drop(_feedforward(self, tgt), generator))
+        tgt = self.add_norm(tgt, self.self_attn(tgt, tgt, generator), self.norm1, generator)
+        tgt = self.add_norm(tgt, self.multihead_attn(tgt, memory, generator), self.norm2, generator)
+        return self.add_norm(tgt, _feedforward(self, tgt), self.norm3, generator)
 
 
 class _Stack(nn.Module):

@@ -32,13 +32,14 @@ import torch
 from torch import nn
 
 from scrubvae_torch.ops.fused_adamw import fused_adamw_leaf, fused_adamw_multi
+from scrubvae_torch.ops.residual_norm import residual_norm, residual_norm_grad
 from scrubvae_torch.train.state import tree_map
 from scrubvae_torch.utils.profiling import launch_nested, launch_stamp
 
 __all__ = ["LAUNCH_COUNTERS", "StepGraph", "advance_counts", "capturable_linalg", "no_host_sync", "side_stream", "storage", "warm_up"]
 
 # the kernel wrappers whose ``launches`` a replay advances
-LAUNCH_COUNTERS = (fused_adamw_multi, fused_adamw_leaf, launch_stamp, launch_nested)
+LAUNCH_COUNTERS = (fused_adamw_multi, fused_adamw_leaf, launch_stamp, launch_nested, residual_norm, residual_norm_grad)
 
 
 def storage(objs: Iterable) -> List[int]:

@@ -216,7 +216,10 @@ def test_updates_and_mals_after_three_steps(runs):
 
 class _Recorder:
     """Wraps the transformer module's dropout functions and keeps each
-    call's input and output."""
+    call's input and output. A residual tail (``residual_norm``) must give,
+    bit for bit, flax's LayerNorm of ``x`` plus its branch, written out
+    here; with a mask it counts as a dropout of ``y`` whose output is the
+    branch ``where(keep, y / (1 - rate), 0)``."""
 
     def __init__(self, mp):
         self.calls = {"dropout": [], "attention": []}
@@ -229,6 +232,20 @@ class _Recorder:
                 return out
 
             mp.setattr(ttr, name, wrapped)
+        tail = ttr.residual_norm
+
+        def wrapped_tail(x, y, keep, rate, weight, bias, eps):
+            got = tail(x, y, keep, rate, weight, bias, eps)
+            branch = y if keep is None else torch.where(keep, y / (1.0 - rate), torch.zeros(()))
+            s = x + branch
+            mean = s.mean(-1, keepdim=True)
+            var = torch.clamp((s * s).mean(-1, keepdim=True) - mean * mean, min=0.0)
+            assert torch.equal(got, (s - mean) * (torch.rsqrt(var + eps) * weight) + bias)
+            if keep is not None:
+                self.calls["dropout"].append((y.detach().clone(), branch.detach().clone(), rate))
+            return got
+
+        mp.setattr(ttr, "residual_norm", wrapped_tail)
 
 
 def _train_forward(model, data, seed):
