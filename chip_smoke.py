@@ -560,12 +560,12 @@ def kernel_phase(flagship) -> dict:
                 w, g, mu, nu, lr=lr, b1c=b1c, b2c=b2c, gscale=gscale, noise=noise, **hyper
             )
             kw, km, kn = w.clone(), mu.clone(), nu.clone()
-            fa.fused_adamw_leaf(kw, g, km, kn, scal, noise=noise, **hyper)
+            fa.fused_adamw_multi(fa.LeafTable([kw], [km], [kn], noise=[noise]), [g], scal, **hyper)
             torch.cuda.synchronize()
             max_err = max(max_err, _assert_bits(case + " (injected noise)", (kw, km, kn), ref))
             # Philox path: bitwise against the plain version on philox_noise
             pw, pm, pn = w.clone(), mu.clone(), nu.clone()
-            fa.fused_adamw_leaf(pw, g, pm, pn, scal, seed=1234, leaf=7, step=t, **hyper)
+            fa.fused_adamw_multi(fa.LeafTable([pw], [pm], [pn], leaf_ids=[7]), [g], scal, seed=1234, step=t, **hyper)
             ref = fa.fused_adamw_leaf_reference(
                 w, g, mu, nu, lr=lr, b1c=b1c, b2c=b2c, gscale=gscale,
                 noise=fa.philox_noise(n, 1234, 7, t, device="cuda"), **hyper,
@@ -820,8 +820,7 @@ def path_phase(trainer, ds, warmup: int = 3, steps: int = 20):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     metrics = []
-    fa.fused_adamw_multi.launches = 0
-    fa.fused_adamw_leaf.launches = 0
+    _reset_launches()
     for i in range(warmup + steps):
         if i == warmup:
             torch.cuda.synchronize()
@@ -830,7 +829,7 @@ def path_phase(trainer, ds, warmup: int = 3, steps: int = 20):
         metrics.append(m)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / steps
-    launches = fa.fused_adamw_multi.launches + fa.fused_adamw_leaf.launches
+    launches = _launches()
 
     losses = {k: torch.stack([m[k] for m in metrics]).float().cpu() for k in metrics[0]}
     bad = [k for k, v in losses.items() if not bool(torch.isfinite(v).all())]
@@ -1191,7 +1190,6 @@ def fit_phase(card: str, keep: pathlib.Path = None) -> dict:
 
     from scrubvae_torch import bench, factory
     from scrubvae_torch.evals import metrics as em
-    from scrubvae_torch.ops import fused_adamw as fa
     from scrubvae_torch.train import trainer as trainer_mod
     from scrubvae_torch.utils import checkpoint as ckpt
 
@@ -1229,8 +1227,7 @@ def fit_phase(card: str, keep: pathlib.Path = None) -> dict:
             timer.wrap(owner, name, label)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fa.fused_adamw_multi.launches = 0
-        fa.fused_adamw_leaf.launches = 0
+        _reset_launches()
         t0 = time.perf_counter()
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
@@ -1242,7 +1239,7 @@ def fit_phase(card: str, keep: pathlib.Path = None) -> dict:
         # read before the card-against-CPU comparison calls the estimators again
         n_eval = len(timer.times["decodability"])
         decod_ms = {k: timer.total_ms(k) / n_eval for k in ("linear", "mlp", "logistic", "qda")}
-        launches = fa.fused_adamw_multi.launches + fa.fused_adamw_leaf.launches
+        launches = _launches()
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         ended = _trainer_state(trainer)
 
@@ -1606,7 +1603,6 @@ def full_phase(card: str) -> dict:
     import csv
 
     from scrubvae_torch import bench, factory
-    from scrubvae_torch.ops import fused_adamw as fa
     from scrubvae_torch.train import trainer as trainer_mod
 
     parity_rec = full_parity()
@@ -1636,13 +1632,12 @@ def full_phase(card: str) -> dict:
             timer.wrap(owner, name, label)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fa.fused_adamw_multi.launches = 0
-        fa.fused_adamw_leaf.launches = 0
+        _reset_launches()
         t0 = time.perf_counter()
         trainer = trainer_mod.train(config, datasets, model, info, device=DEVICE)
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
-        launches = fa.fused_adamw_multi.launches + fa.fused_adamw_leaf.launches
+        launches = _launches()
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         at20 = _trainer_state(trainer)
 
@@ -1756,10 +1751,9 @@ def bench_phase() -> dict:
     del trainer, params, mu
     torch.cuda.empty_cache()
     args = bench.parse_args([])
-    fa.fused_adamw_multi.launches = 0
-    fa.fused_adamw_leaf.launches = 0
+    _reset_launches()
     out = bench.run(args)
-    launches = fa.fused_adamw_multi.launches + fa.fused_adamw_leaf.launches
+    launches = _launches()
     log(json.dumps(out))
     steps = args.warmup + args.steps + 1
     if launches != 2 * steps:
@@ -1872,7 +1866,6 @@ def _shipped_run(name: str, arrays: dict, card: str) -> dict:
     import csv
 
     from scrubvae_torch import factory
-    from scrubvae_torch.ops import fused_adamw as fa
     from scrubvae_torch.train import trainer as trainer_mod
 
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_x360_"))
@@ -1904,13 +1897,12 @@ def _shipped_run(name: str, arrays: dict, card: str) -> dict:
             timer.wrap(owner, fn, label)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fa.fused_adamw_multi.launches = 0
-        fa.fused_adamw_leaf.launches = 0
+        _reset_launches()
         t0 = time.perf_counter()
         trainer = trainer_mod.train(config, datasets, model, info, device=DEVICE)
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
-        launches = fa.fused_adamw_multi.launches + fa.fused_adamw_leaf.launches
+        launches = _launches()
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
         epochs = X360_EPOCHS - X360_START
@@ -2285,7 +2277,6 @@ def _models_run(label: str, config: dict, datasets: dict, card: str, transformer
     import csv
 
     from scrubvae_torch import bench, factory
-    from scrubvae_torch.ops import fused_adamw as fa
     from scrubvae_torch.train import trainer as trainer_mod
 
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_models_"))
@@ -2313,13 +2304,12 @@ def _models_run(label: str, config: dict, datasets: dict, card: str, transformer
             timer.wrap(owner, name, tag)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fa.fused_adamw_multi.launches = 0
-        fa.fused_adamw_leaf.launches = 0
+        _reset_launches()
         t0 = time.perf_counter()
         trainer = trainer_mod.train(cfg, datasets, model, info, device=DEVICE)
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
-        launches = fa.fused_adamw_multi.launches + fa.fused_adamw_leaf.launches
+        launches = _launches()
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         timer.undo()
         at20 = _trainer_state(trainer) if transformer else None
@@ -2481,16 +2471,16 @@ def parkinsons_stream(split: str):
 
 
 def _launches() -> int:
+    """The fused AdamW kernel's launches since ``_reset_launches``."""
     from scrubvae_torch.ops import fused_adamw as fa
 
-    return fa.fused_adamw_multi.launches + fa.fused_adamw_leaf.launches
+    return fa.fused_adamw_multi.launches
 
 
 def _reset_launches() -> None:
     from scrubvae_torch.ops import fused_adamw as fa
 
     fa.fused_adamw_multi.launches = 0
-    fa.fused_adamw_leaf.launches = 0
 
 
 def _surface_run(label: str, cfg: dict, build, card: str, run: pathlib.Path, fused: bool = True,
@@ -3084,7 +3074,6 @@ def _analysis_weights(run: pathlib.Path) -> dict:
     """The fit phase's config trained to epoch 20 with decodability off
     (``train.minimal_test``), into ``run``: weights at 15 and 20."""
     from scrubvae_torch import bench, factory
-    from scrubvae_torch.ops import fused_adamw as fa
     from scrubvae_torch.train import trainer as trainer_mod
 
     datasets = _fit_splits()
@@ -3094,12 +3083,11 @@ def _analysis_weights(run: pathlib.Path) -> dict:
         arena_size=bench.ARENA, discrete_classes=datasets["train"].discrete_classes,
         loss_keys=config["loss"].keys(), device=DEVICE,
     )
-    fa.fused_adamw_multi.launches = 0
-    fa.fused_adamw_leaf.launches = 0
+    _reset_launches()
     t0 = time.perf_counter()
     trainer = trainer_mod.train(config, datasets, model, info, device=DEVICE)
     torch.cuda.synchronize()
-    launches = fa.fused_adamw_multi.launches + fa.fused_adamw_leaf.launches
+    launches = _launches()
     steps = trainer.steps_per_epoch * (FIT_EPOCHS - FIT_START)
     if launches != 2 * steps:
         raise AssertionError(f"analysis: {launches} optimizer launches in {steps} steps; expected 2 a step")
@@ -3964,7 +3952,6 @@ def mesh_rank(rank: int, world: int, tmp: str, label: str, spec: dict, dims: dic
     readings to ``tmp/{label}_rank{rank}.json``."""
     import torch.distributed as dist
 
-    from scrubvae_torch.ops import fused_adamw as fa
     from scrubvae_torch.parallel import mesh as pmesh
     from scrubvae_torch.train import parity
     from scrubvae_torch.utils import checkpoint as ckpt
@@ -4052,14 +4039,13 @@ def mesh_rank(rank: int, world: int, tmp: str, label: str, spec: dict, dims: dic
         for i in range(warmup):
             trainer.state, _ = trainer.train_step(trainer.state, local[i], scale)
         sync()
-        fa.fused_adamw_multi.launches = 0
-        fa.fused_adamw_leaf.launches = 0
+        _reset_launches()
         t0 = time.perf_counter()
         for i in range(warmup, warmup + steps):
             trainer.state, m = trainer.train_step(trainer.state, local[i], scale)
         sync()
         out["step_ms"] = (time.perf_counter() - t0) / steps * 1e3
-        launches = fa.fused_adamw_multi.launches + fa.fused_adamw_leaf.launches
+        launches = _launches()
         out["kernel_launches"], out["launches_per_step"] = launches, launches / steps
         out["last_total"] = float(m["total"])
         if launches != 2 * steps or not math.isfinite(out["last_total"]):

@@ -87,6 +87,8 @@ import time
 import numpy as np
 import torch
 
+from scrubvae_torch.utils import step_cost
+
 __all__ = ["PEAKS", "bench_config", "build", "peak_specs", "run", "main"]
 
 SKELETON = pathlib.Path(__file__).resolve().parent.parent / "configs" / "mouse_skeleton.yaml"
@@ -96,9 +98,10 @@ FULL_CH = (64, 128, 256, 512, 1024)
 SMALL_CH = (8, 8, 16, 16, 32)
 
 # Dense bf16 tensor-core TFLOP/s and HBM GB/s by card name (NVIDIA's data
-# sheets, without sparsity, at the full power limit).
+# sheets, without sparsity, at the full power limit); the SXM part's are
+# ``utils.step_cost``'s.
 PEAKS = (
-    ("H100 80GB HBM3", 989.4, 3350.0),  # H100 SXM
+    ("H100 80GB HBM3", step_cost.TENSOR_16_FLOP_PER_S / 1e12, step_cost.HBM_BYTES_PER_S / 1e9),  # H100 SXM
     ("H100 PCIe", 756.0, 2000.0),
 )
 
@@ -226,7 +229,6 @@ def run(args) -> dict:
 
     from scrubvae_torch.device import resolve_device
     from scrubvae_torch.parallel import mesh as pmesh
-    from scrubvae_torch.utils import step_cost
 
     device = resolve_device(args.device)
     ch = SMALL_CH if args.small else FULL_CH

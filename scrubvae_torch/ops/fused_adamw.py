@@ -9,13 +9,12 @@ bounds it.
 
 ``LeafTable`` describes a fixed list of leaves (w, mu, nu) once; then
 ``fused_adamw_multi`` updates all of them in place with one kernel launch
-per dtype variant present (per ``MAX_LEAVES`` leaves). ``fused_adamw_leaf``
-is the same kernel over a one-leaf table. A CUDA tensor launches the kernel
-(or raises); a CPU tensor runs the plain version, which is the same formula
-as separate torch ops. Storage dtypes pick the variant: a bf16 ``w`` and/or
-bf16 moments are stored with stochastic rounding, whose bits come from the
-kernel's Philox-4x32-10 layout (``philox_noise``) on both devices, so the CPU
-and the card round bit for bit alike.
+per dtype variant present (per ``MAX_LEAVES`` leaves). A CUDA tensor
+launches the kernel (or raises); a CPU tensor runs the plain version, which
+is the same formula as separate torch ops. Storage dtypes pick the variant:
+a bf16 ``w`` and/or bf16 moments are stored with stochastic rounding, whose
+bits come from the kernel's Philox-4x32-10 layout (``philox_noise``) on both
+devices, so the CPU and the card round bit for bit alike.
 """
 
 from __future__ import annotations
@@ -28,7 +27,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from scrubvae_torch.utils import step_cost
-from scrubvae_torch.utils.cuda_build import CudaLibrary
+from scrubvae_torch.utils.cuda_build import CudaLibrary, counted
 
 __all__ = [
     "CHUNK_ELEMS",
@@ -38,7 +37,6 @@ __all__ = [
     "LIBRARY",
     "LeafTable",
     "build",
-    "fused_adamw_leaf",
     "fused_adamw_leaf_reference",
     "fused_adamw_multi",
     "fused_adamw_multi_reference",
@@ -429,23 +427,22 @@ def _launch(table: LeafTable, grads, scal, *, b1, b2, eps, wd, seed, step) -> in
         return 0
     if table.device.type != "cuda":
         raise RuntimeError(f"fused_adamw: no kernel for device {table.device}")
-    fn = LIBRARY.load().fused_adamw_multi_launch
     stream = torch.cuda.current_stream(table.device).cuda_stream
     step = _step_word(step, table.device)
     rows, chunks = table.rows.data_ptr(), table.chunks.data_ptr()
     for b in table.batches:
         gptrs = (ctypes.c_void_p * len(b.idx))(*[grads[i].data_ptr() for i in b.idx])
-        err = fn(
+        LIBRARY.launch(
+            "fused_adamw_multi_launch",
             rows + 56 * b.row0, chunks + 8 * b.chunk0, b.n_chunks, gptrs, len(b.idx),
             int(b.w_bf16), int(b.m_bf16), scal.data_ptr(),
             b1, 1.0 - b1, b2, 1.0 - b2, eps, wd,
             seed & 0xFFFFFFFFFFFFFFFF, step.data_ptr(), CHUNK_ELEMS, stream,
         )
-        if err != 0:
-            raise RuntimeError(f"fused_adamw kernel launch failed: cudaError {err}")
     return len(table.batches)
 
 
+@counted
 def fused_adamw_multi(
     table: LeafTable,
     grads: Sequence[torch.Tensor],
@@ -476,41 +473,6 @@ def fused_adamw_multi(
     fused_adamw_multi.launches += _apply(
         table, grads, scal, b1=b1, b2=b2, eps=eps, wd=wd, seed=seed, step=step
     )
-
-
-fused_adamw_multi.launches = 0
-
-
-def fused_adamw_leaf(
-    w: torch.Tensor,
-    g: torch.Tensor,
-    mu: torch.Tensor,
-    nu: torch.Tensor,
-    scal: torch.Tensor,
-    *,
-    b1: float = 0.9,
-    b2: float = 0.999,
-    eps: float = 1e-8,
-    wd: float = 0.0,
-    seed: int = 0,
-    leaf: int = 0,
-    step: int = 0,
-    noise: Optional[torch.Tensor] = None,
-) -> None:
-    """One AdamW step on one leaf, in place on ``w``, ``mu`` and ``nu``: the
-    multi-tensor kernel over a one-leaf table (built on each call).
-
-    ``scal`` holds the per-step f32 scalars ``[lr, b1c, b2c, gscale]`` on
-    ``w``'s device. The stochastic-rounding bits are ``philox_noise`` of
-    (``seed``, ``leaf``, ``step``); ``noise`` overrides them.
-    """
-    table = LeafTable([w], [mu], [nu], leaf_ids=[leaf], noise=[noise])
-    fused_adamw_leaf.launches += _apply(
-        table, [g], scal, b1=b1, b2=b2, eps=eps, wd=wd, seed=seed, step=step
-    )
-
-
-fused_adamw_leaf.launches = 0
 
 
 def leaf_bytes(shapes: Sequence[tuple], w_bytes: int, m_bytes: int) -> int:

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from scrubvae_torch.utils import step_cost
-from scrubvae_torch.utils.cuda_build import CudaLibrary
+from scrubvae_torch.utils.cuda_build import CudaLibrary, counted
 
 __all__ = [
     "SOURCE",
@@ -153,18 +153,18 @@ def _forward_launch(x, y, keep, inv_keep: float, weight, bias, eps: float):
     if rows == 0:
         return out, stats
     with step_cost.kernel_launches("residual norm", [(_bytes(x, keep, 3), OPS_FORWARD * x.numel())]):
-        err = LIBRARY.load().residual_norm_forward_launch(
+        LIBRARY.launch(
+            "residual_norm_forward_launch",
             x.data_ptr(), y.data_ptr(), keep.data_ptr() if keep is not None else None,
             weight.data_ptr(), bias.data_ptr(), out.data_ptr(), stats.data_ptr(),
             rows, d, _vec(d, x, y, keep, weight, bias, out), inv_keep, _inv_d(rows, d), eps,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError(f"residual_norm forward launch failed: cudaError {err}")
     residual_norm.launches += 1
     return out, stats
 
 
+@counted
 def residual_norm_grad(g, x, y, keep, inv_keep: float, weight, stats, need_dx: bool = True, need_dy: bool = True):
     """The backward kernels of a tail whose forward kept ``stats``: returns
     ``(dx or None, dy or None, dweight, dbias)`` for the output gradient
@@ -175,26 +175,21 @@ def residual_norm_grad(g, x, y, keep, inv_keep: float, weight, stats, need_dx: b
     dy = torch.empty_like(x) if need_dy else None
     if rows == 0:
         return dx, dy, torch.zeros_like(weight), torch.zeros_like(weight)
-    lib = LIBRARY.load()
-    blocks = lib.residual_norm_backward_blocks(rows)
+    blocks = LIBRARY.load().residual_norm_backward_blocks(rows)
     partial = torch.empty((blocks, 2, d), dtype=torch.float32, device=x.device)
     dwb = torch.empty((2, d), dtype=torch.float32, device=x.device)
     nbytes = _bytes(x, keep, 3 + int(need_dx) + int(need_dy))
     with step_cost.kernel_launches("residual norm", [(nbytes, OPS_BACKWARD * x.numel()), (2 * partial.numel() * 4, 0)]):
-        err = lib.residual_norm_backward_launch(
+        LIBRARY.launch(
+            "residual_norm_backward_launch",
             g.data_ptr(), x.data_ptr(), y.data_ptr(), keep.data_ptr() if keep is not None else None,
             weight.data_ptr(), stats.data_ptr(), dx.data_ptr() if need_dx else None,
             dy.data_ptr() if need_dy else None, partial.data_ptr(), dwb[0].data_ptr(), dwb[1].data_ptr(),
             rows, d, _vec(d, g, x, y, keep, weight, dx, dy), inv_keep, _inv_d(rows, d),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError(f"residual_norm backward launch failed: cudaError {err}")
     residual_norm_grad.launches += 2
     return dx, dy, dwb[0], dwb[1]
-
-
-residual_norm_grad.launches = 0
 
 
 class _ResidualNorm(torch.autograd.Function):
@@ -213,6 +208,7 @@ class _ResidualNorm(torch.autograd.Function):
         return dx, dy, None, None, dw, db, None
 
 
+@counted
 def residual_norm(
     x: torch.Tensor,
     y: torch.Tensor,
@@ -236,6 +232,3 @@ def residual_norm(
     inv_keep = _f32(np.float32(1.0) / np.float32(1.0 - rate)) if keep is not None else 1.0
     keep = keep.contiguous() if keep is not None else None
     return _ResidualNorm.apply(x.contiguous(), y.contiguous(), keep, inv_keep, weight.contiguous(), bias.contiguous(), _f32(eps))
-
-
-residual_norm.launches = 0

@@ -12,10 +12,10 @@ reads still lies where it was captured (a state that was replaced, by a
 checkpoint's restore or an MCMI refresh, needs a new capture). A
 generator the step draws from is registered with the graph, so each replay
 draws what the next eager step would draw and advances it as that step
-would. A capture runs no kernel: the kernel wrappers' launch counts
-take the launches it recorded at each replay instead, and
-``advance_counts`` moves a train state's host step counts on by the
-replays.
+would. A capture runs no kernel: the launch counts of the kernel
+wrappers declared with ``utils.cuda_build.counted`` take the launches it
+recorded at each replay instead, and ``advance_counts`` moves a train
+state's host step counts on by the replays.
 
 Capture needs a step free of host synchronisation: ``StepGraph`` raises
 on any operation that cannot be captured, and nothing falls back to
@@ -31,15 +31,10 @@ from typing import Callable, Dict, Iterable, List, Sequence
 import torch
 from torch import nn
 
-from scrubvae_torch.ops.fused_adamw import fused_adamw_leaf, fused_adamw_multi
-from scrubvae_torch.ops.residual_norm import residual_norm, residual_norm_grad
 from scrubvae_torch.train.state import tree_map
-from scrubvae_torch.utils.profiling import launch_nested, launch_stamp
+from scrubvae_torch.utils.cuda_build import launch_counts
 
-__all__ = ["LAUNCH_COUNTERS", "StepGraph", "advance_counts", "capturable_linalg", "no_host_sync", "side_stream", "storage", "warm_up"]
-
-# the kernel wrappers whose ``launches`` a replay advances
-LAUNCH_COUNTERS = (fused_adamw_multi, fused_adamw_leaf, launch_stamp, launch_nested, residual_norm, residual_norm_grad)
+__all__ = ["StepGraph", "advance_counts", "capturable_linalg", "no_host_sync", "side_stream", "storage", "warm_up"]
 
 
 def storage(objs: Iterable) -> List[int]:
@@ -135,19 +130,24 @@ class StepGraph:
     returned (tensors in the graph's pool, rewritten by each replay).
     ``reads`` is what the step reads and writes (tensors, modules,
     states); ``generators`` are the generators it draws from (the default
-    CUDA generator is registered by torch itself)."""
+    CUDA generator is registered by torch itself).
+
+    ``launches`` maps each counted kernel wrapper (``cuda_build.counted``)
+    to the launches the capture recorded; it covers the wrappers declared
+    when the capture begins. A wrapper is declared when its module is
+    imported, which the models and the optimizer do at their top."""
 
     def __init__(self, fn: Callable, reads: Sequence, generators: Sequence[torch.Generator] = ()):
         self.generators = list(generators)
         self.graph = torch.cuda.CUDAGraph()
         for g in self.generators:
             self.graph.register_generator_state(g)
-        before = [c.launches for c in LAUNCH_COUNTERS]
+        before = launch_counts()
         with torch.cuda.graph(self.graph, stream=side_stream()):
             self.out = fn()
         # a capture records the kernels and launches none
-        self.launches = [c.launches - b for c, b in zip(LAUNCH_COUNTERS, before)]
-        for c, b in zip(LAUNCH_COUNTERS, before):
+        self.launches = {c: c.launches - b for c, b in before.items()}
+        for c, b in before.items():
             c.launches = b
         self._ptrs = storage(reads)
 
@@ -163,5 +163,5 @@ class StepGraph:
         """One launch of the captured step; the kernel wrappers' launch
         counts take the launches it recorded."""
         self.graph.replay()
-        for c, n in zip(LAUNCH_COUNTERS, self.launches):
+        for c, n in self.launches.items():
             c.launches += n

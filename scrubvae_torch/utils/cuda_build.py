@@ -5,8 +5,16 @@ and the flags, so an edit builds anew) and loaded with ctypes.
 
 A ``CudaLibrary`` owns one source and its loaded handle; ``bind`` declares
 the argument and return types of its C functions once, when it loads.
-``drop_all`` forgets every handle (``utils.retry`` does so between
-attempts), so the next launch loads the build again.
+``launch`` calls a C entry that returns a ``cudaError`` and raises on a
+non-zero one. ``drop_all`` forgets every handle (``utils.retry`` does so
+between attempts), so the next launch loads the build again.
+
+A kernel wrapper declared with ``counted`` has a ``launches`` attribute,
+which it increments by the kernel launches each call makes;
+``launch_counts`` reads every declared wrapper's, and
+``train.graph.StepGraph`` advances them at each replay of a captured step.
+So a new kernel is one ``csrc/*.cu`` source, one ``CudaLibrary`` and one
+wrapper declared with ``counted``.
 """
 
 from __future__ import annotations
@@ -18,11 +26,11 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 from scrubvae_torch.utils.retry import retry_build
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "CudaLibrary", "drop_all"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "CudaLibrary", "counted", "drop_all", "launch_counts"]
 
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -32,6 +40,7 @@ NVCC_FLAGS = (
 )
 
 _LIBRARIES: List["CudaLibrary"] = []
+_COUNTED: List[Callable] = []
 
 
 def _nvcc() -> str:
@@ -89,6 +98,13 @@ class CudaLibrary:
                 self.handle = lib
             return self.handle
 
+    def launch(self, entry: str, *args) -> None:
+        """Call the C function ``entry`` of the loaded library with
+        ``args``; raises where it returns a non-zero ``cudaError``."""
+        err = getattr(self.load(), entry)(*args)
+        if err != 0:
+            raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+
     def drop(self) -> None:
         """Forget the loaded library; the next launch loads the build again."""
         with self._lock:
@@ -99,3 +115,17 @@ def drop_all() -> None:
     """``drop`` every library."""
     for lib in _LIBRARIES:
         lib.drop()
+
+
+def counted(fn: Callable) -> Callable:
+    """Declare ``fn`` a kernel wrapper that counts its launches: its
+    ``launches`` starts at 0, and ``launch_counts`` reads it."""
+    fn.launches = 0
+    _COUNTED.append(fn)
+    return fn
+
+
+def launch_counts() -> Dict[Callable, int]:
+    """Each wrapper declared with ``counted`` (the module docstring) and
+    its ``launches``, as they stand: those whose module has been imported."""
+    return {fn: fn.launches for fn in _COUNTED}

@@ -69,7 +69,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
-from scrubvae_torch.utils.cuda_build import CudaLibrary
+from scrubvae_torch.utils.cuda_build import CudaLibrary, counted
 
 __all__ = [
     "NESTED", "SLOTS", "STAMP_LIBRARY", "SolveCounts", "StepSpans", "SyncCount", "count_factorizations",
@@ -114,6 +114,7 @@ def trace(log_dir: str = "./build/trace"):
     prof.export_chrome_trace(str(out))
 
 
+@counted
 def launch_stamp(buf: torch.Tensor, slot: int) -> None:
     """One stamp kernel into ``buf`` (``StepSpans.buf``) for slot index
     ``slot``, on the current stream. ``launches`` counts the launches; one
@@ -124,15 +125,11 @@ def launch_stamp(buf: torch.Tensor, slot: int) -> None:
     if not 0 <= slot < len(SLOTS):
         raise ValueError(f"launch_stamp: no slot {slot}")
     stream = torch.cuda.current_stream(buf.device).cuda_stream
-    err = STAMP_LIBRARY.load().span_stamp_launch(buf.data_ptr(), len(SLOTS), slot, stream)
-    if err != 0:
-        raise RuntimeError(f"span stamp kernel launch failed: cudaError {err}")
+    STAMP_LIBRARY.launch("span_stamp_launch", buf.data_ptr(), len(SLOTS), slot, stream)
     launch_stamp.launches += 1
 
 
-launch_stamp.launches = 0
-
-
+@counted
 def launch_nested(buf: torch.Tensor, span: int, close: bool) -> None:
     """One nested-span kernel into ``buf`` (``StepSpans.nested_buf``),
     opening or closing span index ``span``, on the current stream.
@@ -142,13 +139,8 @@ def launch_nested(buf: torch.Tensor, span: int, close: bool) -> None:
     if not 0 <= span < len(NESTED):
         raise ValueError(f"launch_nested: no span {span}")
     stream = torch.cuda.current_stream(buf.device).cuda_stream
-    err = STAMP_LIBRARY.load().nested_span_launch(buf.data_ptr(), len(NESTED), span, int(close), stream)
-    if err != 0:
-        raise RuntimeError(f"nested span kernel launch failed: cudaError {err}")
+    STAMP_LIBRARY.launch("nested_span_launch", buf.data_ptr(), len(NESTED), span, int(close), stream)
     launch_nested.launches += 1
-
-
-launch_nested.launches = 0
 
 
 class StepSpans:

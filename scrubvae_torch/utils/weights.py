@@ -45,13 +45,12 @@ from typing import Dict
 import numpy as np
 import torch
 
-from scrubvae_torch.models.scrubbers import MAFilterState, MALSState, MIState, QDAState
+from scrubvae_torch.models.scrubbers import MALSState, MIState, QDAState
 
 __all__ = [
     "from_jax_variables",
     "adv_from_jax",
     "mals_state_from_numpy",
-    "ma_state_from_numpy",
     "qda_state_from_numpy",
     "mi_state_from_numpy",
 ]
@@ -302,13 +301,6 @@ def _from_numpy(arrays: Dict[str, np.ndarray], like, fields, device):
     return like.replace(
         **{k: torch.as_tensor(np.array(arrays[k], np.float32), device=device) for k in fields}
     )
-
-
-def ma_state_from_numpy(arrays: Dict[str, np.ndarray], like: MAFilterState, device=None) -> MAFilterState:
-    """A moving-average state with the arrays of a JAX ``MAFilterState``
-    (m1, m2, lam1, lam2) and ``like``'s classes and static settings."""
-    dev = like.m1.device if device is None else device
-    return _from_numpy(arrays, like, ("m1", "m2", "lam1", "lam2"), dev)
 
 
 def mals_state_from_numpy(arrays: Dict[str, np.ndarray], like: MALSState, device=None) -> MALSState:

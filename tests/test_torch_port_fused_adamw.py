@@ -91,8 +91,9 @@ def test_plain_matches_pallas_interpret_f32():
 
 @pytest.mark.parametrize("wk,mk", [("f32", "f32"), ("f32", "bf16"), ("bf16", "f32"), ("bf16", "bf16")])
 def test_bf16_stores_bitwise_match_jax_sround(wk, mk):
-    """Each dtype variant: the plain version and the CPU wrapper (in place)
-    store exactly JAX's stochastic rounding of the f32 result."""
+    """Each dtype variant: the plain version and the CPU wrapper over a
+    one-leaf table (in place) store exactly JAX's stochastic rounding of the
+    f32 result."""
     shape = (37, 29)
     w, g, mu, nu = _leaf(shape, 3)
     wt, mt = DTYPES[wk], DTYPES[mk]
@@ -118,7 +119,7 @@ def test_bf16_stores_bitwise_match_jax_sround(wk, mk):
             np.testing.assert_array_equal(_bits(out), _bits(x))
     scal = torch.tensor([SCAL["lr"], SCAL["b1c"], SCAL["b2c"], SCAL["gscale"]])
     w_, g_, m_, n_ = (t.clone() for t in ins)
-    fa.fused_adamw_leaf(w_, g_, m_, n_, scal, noise=noise, **HYPER)
+    fa.fused_adamw_multi(fa.LeafTable([w_], [m_], [n_], leaf_ids=[0], noise=[noise]), [g_], scal, **HYPER)
     for a, b in zip((w_, m_, n_), got):
         np.testing.assert_array_equal(_bits(a), _bits(b))
 
@@ -140,18 +141,19 @@ def test_stochastic_rounding_unbiased():
     assert abs(acc / 16 - 1.001) < 2e-4
 
 
+def _one_leaf(w, g, mu, nu, scal, noise=None):
+    fa.fused_adamw_multi(fa.LeafTable([w], [mu], [nu], leaf_ids=[0], noise=[noise]), [g], scal)
+
+
 def test_wrapper_rejects_mismatched_inputs():
     w = torch.zeros(8)
     scal = torch.ones(4)
     with pytest.raises(ValueError):
-        fa.fused_adamw_leaf(w, torch.zeros(9), torch.zeros(8), torch.zeros(8), scal)
+        _one_leaf(w, torch.zeros(9), torch.zeros(8), torch.zeros(8), scal)
     with pytest.raises(TypeError):
-        fa.fused_adamw_leaf(w, torch.zeros(8, dtype=torch.bfloat16), torch.zeros(8), torch.zeros(8), scal)
+        _one_leaf(w, torch.zeros(8, dtype=torch.bfloat16), torch.zeros(8), torch.zeros(8), scal)
     with pytest.raises(ValueError):
-        fa.fused_adamw_leaf(
-            w, torch.zeros(8), torch.zeros(8), torch.zeros(8), scal,
-            noise=torch.zeros((3, 8), dtype=torch.int64),
-        )
+        _one_leaf(w, torch.zeros(8), torch.zeros(8), torch.zeros(8), scal, noise=torch.zeros((3, 8), dtype=torch.int64))
 
 
 @pytest.mark.parametrize("clip", [None, 1.0])

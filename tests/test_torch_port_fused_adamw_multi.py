@@ -11,14 +11,25 @@ version, and the optimizer's refusal of a table whose storage moved. The
 kernel itself is held bitwise against the same plain version on the card by
 chip_smoke.py. The optimizer's agreement with JAX is in
 test_torch_port_fused_adamw.py.
+
+Also the seam every hand-written kernel goes through (``utils.cuda_build``):
+a launch's error check, the registry of launch counters, and a step graph
+that knows no kernel module.
 """
+
+import ast
+import types
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from scrubvae_torch.ops import fused_adamw as fa
+from scrubvae_torch.ops import residual_norm as rn
+from scrubvae_torch.train import graph
 from scrubvae_torch.train import optim as toptim
+from scrubvae_torch.utils import cuda_build, profiling
 
 torch.set_num_threads(1)
 
@@ -108,12 +119,11 @@ def test_multi_matches_per_leaf_plain_version_bitwise():
         if nz is None and (w.dtype == torch.bfloat16 or mu.dtype == torch.bfloat16):
             nz = fa.philox_noise(w.numel(), seed, ids[i], step)
         want = fa.fused_adamw_leaf_reference(w, g, mu, nu, **SCAL, **HYPER, noise=nz)
-        # the one-leaf wrapper agrees too
-        one = [t.clone() for t in (w, mu, nu)]
-        fa.fused_adamw_leaf(one[0], g, one[1], one[2], scal, seed=seed, leaf=ids[i], step=step,
-                            noise=nzs[i], **HYPER)
+        # a one-leaf table agrees too
+        one = fa.LeafTable([w.clone()], [mu.clone()], [nu.clone()], leaf_ids=[ids[i]], noise=[nzs[i]])
+        fa.fused_adamw_multi(one, [g], scal, seed=seed, step=step, **HYPER)
         got = (table.w[i], table.mu[i], table.nu[i])
-        for a, b, c in zip(got, want, one):
+        for a, b, c in zip(got, want, (one.w[0], one.mu[0], one.nu[0])):
             assert a.dtype == b.dtype
             assert torch.equal(_bits(a), _bits(b)), i
             assert torch.equal(_bits(c), _bits(b)), i
@@ -232,3 +242,47 @@ def test_leaf_table_refuses_a_rounded_slice_off_the_group_grid():
         fa.LeafTable(bf, [torch.zeros(16, dtype=torch.bfloat16)], [torch.zeros(16, dtype=torch.bfloat16)], starts=[12])
     table = fa.LeafTable([torch.zeros(16)], [torch.zeros(16)], [torch.zeros(16)], starts=[12])
     assert table.rows.tolist()[0][6] == 1
+
+
+def test_launch_raises_with_the_entry_and_its_code():
+    """``CudaLibrary.launch`` passes its arguments to the C entry and turns a
+    non-zero ``cudaError`` into an error naming the entry (a fake loaded
+    handle: nothing is built)."""
+    lib = cuda_build.CudaLibrary(Path("fake.cu"), bind=lambda _: None)
+    calls = []
+    lib.handle = types.SimpleNamespace(ok_launch=lambda *a: calls.append(a) or 0, bad_launch=lambda *a: 719)
+    lib.launch("ok_launch", 1, None, 2.5)
+    assert calls == [(1, None, 2.5)]
+    with pytest.raises(RuntimeError, match=r"^bad_launch launch failed: cudaError 719$"):
+        lib.launch("bad_launch", 3)
+
+
+def test_counted_registers_a_wrapper():
+    """A wrapper declared with ``counted`` starts at 0 launches and is read by
+    ``launch_counts``, as the port's five kernel wrappers are."""
+    def wrapper():
+        wrapper.launches += 3
+
+    try:
+        assert cuda_build.counted(wrapper) is wrapper and wrapper.launches == 0
+        wrapper()
+        assert cuda_build.launch_counts()[wrapper] == 3
+    finally:
+        cuda_build._COUNTED.remove(wrapper)
+    assert wrapper not in cuda_build.launch_counts()
+    kernels = {fa.fused_adamw_multi, rn.residual_norm, rn.residual_norm_grad, profiling.launch_stamp,
+               profiling.launch_nested}
+    assert kernels <= set(cuda_build.launch_counts())
+
+
+def test_step_graph_imports_no_kernel_module():
+    """``train.graph`` counts launches through the registry alone: it imports
+    nothing from ``scrubvae_torch.ops`` or ``utils.profiling``."""
+    names = []
+    for node in ast.walk(ast.parse(Path(graph.__file__).read_text())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names += [node.module] + [f"{node.module}.{a.name}" for a in node.names]
+    assert "scrubvae_torch.utils.cuda_build" in names
+    assert not [n for n in names if n.startswith(("scrubvae_torch.ops", "scrubvae_torch.utils.profiling"))]
